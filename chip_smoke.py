@@ -5,9 +5,14 @@
 Phases, each printing one JSON line:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view.
-2. build: compile csrc/fused_pa.cu with nvcc (ptxas register report).
+2. build: compile csrc/fused_pa.cu with nvcc and print ptxas's report;
+   registers, local memory (spills), shared memory and resident blocks per
+   SM of every instantiation, as the runtime reads them. A 4096-point
+   instantiation with local memory fails the phase.
 3. kernel: the fused_pa kernel against its plain PyTorch version on the
-   card (full/sc modes, f32/bf16 planes, every PA model, every n_fft).
+   card (full/sc modes, f32/bf16 planes, every PA model, every n_fft, a
+   ragged last block at every n_fft below 4096, one row and zero rows,
+   n_sc = n_fft/4, and the TX shape in both dtypes).
 4. main path: the canonical frame (64-QAM, n_fft 4096, n_sc 2048, 64-antenna
    ULA, MRT, Rayleigh, soft limiter at IBO 0 dB, 8 CNC iterations, bf16
    storage) through ``make_round_fn``: CNC and MCNC rounds at full width,
@@ -15,7 +20,11 @@ Phases, each printing one JSON line:
 5. frame: a small f32 frame with fixed draws through the kernel and through
    the plain version forced on CUDA tensors; the counters must be equal.
 6. timing: CUDA-event times of the kernel, its plain version and the
-   torch.fft chain at the main path's shapes, beside the kernel's bound.
+   torch.fft chain at the main path's two shapes (TX launch, CNC replica)
+   in both plane dtypes, beside the kernel's bound and its share of it.
+   ``ms`` is the mean over back-to-back calls, host time included, as the
+   main path sees it; ``graph_ms`` replays the kernel's calls from a CUDA
+   graph, which leaves its device time alone.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -28,7 +37,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import math
 import os
 import subprocess
 import sys
@@ -69,6 +77,28 @@ def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, n: int = 20, replays: int = 5) -> float:
+    """Device time of one ``fn()``: a CUDA graph of ``n`` calls, replayed,
+    so that no host time between the launches counts."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * replays)
 
 
 def kernel_checks(fp, dev) -> dict:
@@ -122,6 +152,29 @@ def kernel_checks(fp, dev) -> dict:
         ar, ai = planes(96, n_fft // 2)
         cases.append(check(f"sc_softlim_f32_nfft{n_fft}", ar, ai, 0.5,
                            pa_model="softlim", n_fft=n_fft, mode="sc"))
+        # 37 rows: the last block of 256 / (n_fft / 16) rows is ragged
+        ar, ai = planes(37, n_fft // 2)
+        cases.append(check(f"sc_softlim_f32_nfft{n_fft}_ragged37", ar, ai, sat[:37],
+                           pa_model="softlim", n_fft=n_fft, mode="sc"))
+    ar, ai = planes(1, 2048)
+    cases.append(check("sc_softlim_f32_one_row", ar, ai, 0.4, pa_model="softlim",
+                       n_fft=4096, mode="sc"))
+    ar, ai = planes(40, 256)
+    cases.append(check("sc_softlim_f32_nfft1024_nsc256", ar, ai, 0.3,
+                       pa_model="softlim", n_fft=1024, mode="sc"))
+    ar, ai = planes(64 * 128, 2048)
+    tx_sat = torch.rand(64 * 128, generator=g, device=dev) + 0.2
+    cases.append(check("sc_softlim_f32_tx_shape", ar, ai, tx_sat, pa_model="softlim",
+                       n_fft=4096, mode="sc"))
+    cases.append(check("sc_softlim_bf16_tx_shape", ar.bfloat16(), ai.bfloat16(), tx_sat,
+                       tol=1e-2, pa_model="softlim", n_fft=4096, mode="sc"))
+    before = kern.launches
+    zr, _ = kern(ar[:0], ai[:0], 1.0, pa_model="softlim", n_fft=4096, mode="sc")
+    zero_ok = tuple(zr.shape) == (0, 2048) and kern.launches == before
+    print(json.dumps({"phase": "kernel", "case": "zero_rows", "shape": [0, 2048],
+                      "launched": kern.launches - before, "ok": zero_ok}), flush=True)
+    if not zero_ok:
+        raise AssertionError("zero rows: expected an empty result and no launch")
     return {"cases": len(cases), "worst_rel_err": max(c["rel_err"] for c in cases
                                                       if c["tol"] <= 1e-5)}
 
@@ -207,13 +260,19 @@ def timing(fp, ofdm, dev, batch: int, card: str = "", n_fft: int = 4096,
     kern = fp.fused_ifft_pa_fft
     g = torch.Generator(device=dev).manual_seed(1)
     out = {}
-    for name, rows in (("tx", batch * 64), ("cnc_replica", batch)):
-        xr = torch.randn(rows, n_sc, generator=g, device=dev).bfloat16()
-        xi = torch.randn(rows, n_sc, generator=g, device=dev).bfloat16()
+    for name, rows, dtype in (("tx", batch * 64, torch.bfloat16),
+                              ("cnc_replica", batch, torch.bfloat16),
+                              ("tx_f32", batch * 64, torch.float32),
+                              ("cnc_replica_f32", batch, torch.float32)):
+        xr = torch.randn(rows, n_sc, generator=g, device=dev).to(dtype)
+        xi = torch.randn(rows, n_sc, generator=g, device=dev).to(dtype)
         sat = torch.full((rows,), 0.5, device=dev)
         coeff = torch.zeros(rows, device=dev)
         kw = dict(pa_model="softlim", n_fft=n_fft, mode="sc")
         ms = time_ms(lambda: kern(xr, xi, sat, coeff, **kw))
+        dev_ms = graph_ms(lambda: kern(xr, xi, sat, coeff, **kw))
+        # the same launch with the PA switched off: what the PA costs in it
+        no_pa_ms = time_ms(lambda: kern(xr, xi, sat, coeff, **{**kw, "pa_model": "none"}))
         plain_ms = time_ms(lambda: fp.fused_ifft_pa_fft_plain(xr, xi, sat, coeff, **kw))
         full = ofdm.map_subcarriers(torch.complex(xr.float(), xi.float()), n_fft)
         lib_ms = time_ms(lambda: torch.fft.fft(torch.fft.ifft(full, norm="ortho"),
@@ -223,10 +282,12 @@ def timing(fp, ofdm, dev, batch: int, card: str = "", n_fft: int = 4096,
         torch.cuda.synchronize()
         diff = torch.complex(kr.float(), ki.float()) - torch.complex(pr.float(), pi.float())
         n_bytes = rows * n_sc * 2 * xr.element_size() * 2 + rows * 8
-        n_ops = rows * 2 * 5 * n_fft * math.log2(n_fft)
+        n_ops = rows * fp.flops_per_row(n_fft, "sc")
         bytes_ms, ops_ms = n_bytes / H100_BYTES_PER_S * 1e3, n_ops / H100_F32_FLOPS * 1e3
-        out[name] = {"rows": rows, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": max(bytes_ms, ops_ms),
+        out[name] = {"rows": rows, "dtype": str(dtype), "ms": ms, "graph_ms": dev_ms,
+                     "ms_without_pa": no_pa_ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_share": max(bytes_ms, ops_ms) / ms,
                      "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
                      "bytes": n_bytes, "flops": n_ops, "ns_per_row": ms * 1e6 / rows,
                      "max_abs_err": float(diff.abs().max()), "card": card}
@@ -258,9 +319,16 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    _, report = fp.build_library()
-    emit("build", seconds=time.perf_counter() - t0,
-         ptxas=[ln for ln in report.splitlines() if "registers" in ln or "smem" in ln])
+    _, ptxas = fp.build_library()
+    seconds = time.perf_counter() - t0
+    print(ptxas, flush=True)
+    resources = fp.kernel_resources()
+    for r in resources:
+        print(json.dumps({"phase": "build", "instantiation": r}), flush=True)
+    emit("build", seconds=seconds, instantiations=len(resources))
+    spills = [r for r in resources if r["n_fft"] == 4096 and r["local_bytes"]]
+    if spills:
+        raise AssertionError(f"4096-point instantiations spill: {spills}")
 
     emit("kernel_summary", **kernel_checks(fp, dev))
     paths = main_path(fp, config, link, dev, args.batch, args.rounds, smi)
@@ -278,6 +346,9 @@ def main() -> int:
         "max_rel_err": RESULTS["kernel_summary"]["worst_rel_err"],
         "ms": tx["ms"], "plain_ms": tx["plain_ms"], "bound_ms": tx["bound_ms"],
         "bound_by": tx["bound_by"], "library_ms": tx["library_ms"],
+        "bound_share": tx["bound_share"], "graph_ms": tx["graph_ms"],
+        "cnc_replica_ms": times["cnc_replica"]["ms"],
+        "cnc_replica_graph_ms": times["cnc_replica"]["graph_ms"],
         "shape": f"sc bf16 [{tx['rows']}, 2048] n_fft 4096",
         "card": smi}]}
     if args.out:

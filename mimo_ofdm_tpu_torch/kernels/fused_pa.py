@@ -21,11 +21,18 @@ wrapper counts kernel launches in ``fused_ifft_pa_fft.launches``; setting
 ``fused_ifft_pa_fft.force_plain = True`` runs the plain version on CUDA
 tensors too, for comparing the two inside a whole frame (tests and
 ``chip_smoke.py`` only).
+
+:func:`fused_ifft_pa_fft_staged` is a PyTorch model of the kernel's own
+schedule (the radix-16 passes, the twiddle table, the shared-memory
+exchanges with their swizzled addresses, the PA on the digit-reversed
+samples). It is for the CPU tests only, which debug the kernel's index
+and twiddle arithmetic with it; no entry point calls it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import math
@@ -64,6 +71,19 @@ def check_shapes(n_fft: int, n_io: int, mode: str) -> None:
             raise ValueError(f"sc mode needs an even n_sc < n_fft={n_fft}, got {n_io}")
     else:
         raise ValueError(f"unknown mode {mode!r} (expected one of {MODES})")
+
+
+def flops_per_row(n_fft: int, mode: str) -> int:
+    """Real floating-point operations that one row of the function needs:
+    two split-radix transforms of ``4 N log2 N - 6 N + 8`` each. In ``sc``
+    mode (at ``n_sc = n_fft / 2``) half of the IFFT's input bins are zero,
+    which saves about ``2 N`` additions of its first stage, and half of the
+    FFT's output bins are dropped, which saves ``N`` of its last stage. The
+    PA's few operations a sample are not counted, so a time bound built on
+    this count stays a lower bound."""
+    check_shapes(n_fft, n_fft if mode == "full" else n_fft // 2, mode)
+    one = 4 * n_fft * (n_fft.bit_length() - 1) - 6 * n_fft + 8
+    return 2 * one - (3 * n_fft if mode == "sc" else 0)
 
 
 def fused_ifft_pa_fft_plain(xr, xi, sat, cubic_coeff, *, pa_model: str,
@@ -119,17 +139,179 @@ def build_library() -> tuple[ctypes.CDLL, str]:
     fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, cf,
                    cf, vp]
     fn.restype = ci
+    attrs = lib.fused_ifft_pa_fft_attributes
+    attrs.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+    attrs.restype = ci
     report = report_path.read_text() if report_path.exists() else ""
     return lib, report
 
 
+def kernel_resources() -> list[dict]:
+    """Every instantiation's resources, as the runtime reads them from the
+    loaded kernel on the current card: registers, local memory (non-zero
+    when ptxas spills), shared memory, resident blocks per SM."""
+    lib, _ = build_library()
+    rows = []
+    for log2n in range(N_FFT_RANGE[0].bit_length() - 1, N_FFT_RANGE[1].bit_length()):
+        for mode in MODES:
+            for dtype in ("float32", "bfloat16"):
+                buf = (ctypes.c_int * 5)()
+                err = lib.fused_ifft_pa_fft_attributes(
+                    log2n, int(mode == "sc"), int(dtype == "bfloat16"), buf)
+                if err:
+                    raise RuntimeError(f"fused_ifft_pa_fft_attributes: CUDA error {err}")
+                rows.append({"n_fft": 1 << log2n, "mode": mode, "dtype": dtype,
+                             "registers": buf[0],
+                             "local_bytes": buf[1], "static_smem_bytes": buf[2],
+                             "dynamic_smem_bytes": buf[3], "blocks_per_sm": buf[4]})
+    return rows
+
+
+POINTS = 16          # complex points a thread holds in registers
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """How the kernel splits one ``n_fft``-point row: ``threads`` threads of
+    16 points each, three passes of radix 16, 16 and ``radix``
+    (``radix == 1``: two passes), and the shared-memory float2 address of
+    each thread's 16 registers in the exchanges, ``[threads, 16]`` each and
+    already swizzled: ``e1_w``/``e1_r`` after pass 1 (written in pass-1
+    layout, read in pass-2 layout), ``e2_w``/``e2_r`` after pass 2 (None
+    when ``radix == 1``). The FFT runs the same exchanges with reads and
+    writes swapped."""
+    n_fft: int
+    threads: int
+    radix: int
+    e1_w: np.ndarray
+    e1_r: np.ndarray
+    e2_w: np.ndarray | None
+    e2_r: np.ndarray | None
+
+
+def swizzle(addr):
+    """The exchange buffers' bank swizzle (float2 units): bits 4-7 of the
+    address flip its low 4 bits, so every half-warp's 16 accesses fall on
+    16 distinct 8-byte bank pairs."""
+    return addr ^ ((addr >> 4) & 15)
+
+
+@functools.lru_cache(maxsize=None)
+def schedule(n_fft: int) -> Schedule:
+    """The kernel's split of an ``n_fft``-point row (``csrc/fused_pa.cu``
+    computes the same addresses)."""
+    check_shapes(n_fft, n_fft, "full")
+    threads, radix = n_fft // POINTS, n_fft // 256
+    t = np.arange(threads)[:, None]
+    i = np.arange(POINTS)[None, :]
+    k, a = t // radix, t % radix                 # pass-2/3 coordinates
+    e1_w = i * threads + t                       # thread t, register k = i
+    e1_r = k * threads + a + radix * i           # thread (k, a), register b = i
+    e2_w = e2_r = None
+    if radix > 1:
+        e2_w = k * threads + i * radix + a       # thread (k, a), register c = i
+        cl, aa = i // radix, i % radix           # thread (k, g = a), register cl*r + aa
+        e2_r = k * threads + (a * (POINTS // radix) + cl) * radix + aa
+        e2_w, e2_r = swizzle(e2_w), swizzle(e2_r)
+    return Schedule(n_fft, threads, radix, swizzle(e1_w), swizzle(e1_r), e2_w, e2_r)
+
+
+@functools.lru_cache(maxsize=None)
+def twiddle_table(n_fft: int) -> np.ndarray:
+    """The kernel's twiddles, computed in float64 and rounded to float32
+    (re, im) pairs, in the order the kernel reads them: ``16 * threads``
+    entries ``W^(t k)`` at ``k * threads + t`` for pass 1, then ``16 *
+    radix`` entries ``W^(16 a c)`` at ``c * radix + a`` for pass 2, with
+    ``W = exp(-2 pi i / n_fft)``. The IFFT takes the conjugates."""
+    s = schedule(n_fft)
+    k = np.arange(POINTS)[:, None]
+    e1 = k * np.arange(s.threads)[None, :]
+    e2 = 16 * k * np.arange(s.radix)[None, :]
+    w = np.exp(-2j * np.pi * np.concatenate([e1.ravel(), e2.ravel()]) / n_fft)
+    return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+
+
 @functools.lru_cache(maxsize=None)
 def _twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
-    """``exp(-2 pi i t / n_fft)`` for ``t < n_fft``, computed in float64 and
-    stored as interleaved float32 (re, im) pairs on ``device``."""
-    w = np.exp(-2j * np.pi * np.arange(n_fft) / n_fft)
-    pairs = np.stack([w.real, w.imag], axis=-1).astype(np.float32)
-    return torch.from_numpy(pairs).to(device)
+    """:func:`twiddle_table` on ``device``."""
+    return torch.from_numpy(twiddle_table(n_fft)).to(device)
+
+
+def _sc_bins(n_fft: int, n_io: int, mode: str) -> np.ndarray:
+    """For each FFT bin, its index in the ``[..., n_io]`` planes, or -1 for
+    DC and the guard band: the kernel's load map, and its store map read
+    the other way."""
+    p = np.arange(n_fft)
+    if mode == "full":
+        return p
+    h = n_io // 2
+    return np.where((p >= 1) & (p <= h), p + h - 1,
+                    np.where(p >= n_fft - h, p - (n_fft - h), -1))
+
+
+def _dft_matrix(m: int, inverse: bool) -> torch.Tensor:
+    """``[j, k] -> exp(-+2 pi i j k / m)`` in complex64, from float64."""
+    j = np.arange(m)
+    sign = 1.0 if inverse else -1.0
+    return torch.from_numpy(np.exp(sign * 2j * np.pi * np.outer(j, j) / m)
+                            .astype(np.complex64))
+
+
+def fused_ifft_pa_fft_staged(xr, xi, sat, cubic_coeff, *, pa_model: str,
+                             n_fft: int, mode: str = "sc",
+                             rapp_p: float = 1.1):
+    """The kernel's schedule in PyTorch, complex64 on the CPU (tests only).
+
+    ``regs[row, t, i]`` is register ``i`` of thread ``t``. Each pass is a
+    DFT over a thread's registers (``@`` a DFT matrix), each exchange a
+    scatter to the swizzled shared-memory addresses of :func:`schedule` and
+    a gather back. Arguments as :func:`fused_ifft_pa_fft_plain`."""
+    check_shapes(n_fft, xr.shape[-1], mode)
+    s = schedule(n_fft)
+    T, r = s.threads, s.radix
+    lead, n_io = xr.shape[:-1], xr.shape[-1]
+    x = torch.complex(xr.to(torch.float32), xi.to(torch.float32)).reshape(-1, n_io)
+    rows = x.shape[0]
+    tw = torch.from_numpy(twiddle_table(n_fft))
+    tw = torch.complex(tw[:, 0], tw[:, 1])
+    tw1 = tw[:POINTS * T].reshape(POINTS, T).T                 # [t, k]
+    tw2 = tw[POINTS * T:].reshape(POINTS, r).T[np.arange(T) % r]  # [t (k, a), c]
+    norm = 1.0 / math.sqrt(n_fft)
+    # register j of thread t holds bin t + T j
+    bins = np.arange(n_fft).reshape(POINTS, T).T
+    io = torch.from_numpy(_sc_bins(n_fft, n_io, mode)[bins])
+    regs = torch.where(io >= 0, x[:, io.clamp(min=0)], 0) * norm
+
+    def exchange(v, w_addr, r_addr):
+        buf = torch.zeros(rows, n_fft, dtype=v.dtype)
+        buf[:, torch.from_numpy(w_addr.ravel())] = v.reshape(rows, -1)
+        return buf[:, torch.from_numpy(r_addr.ravel())].reshape(rows, T, POINTS)
+
+    def dft_r(v, inverse):
+        return (v.reshape(rows, T, POINTS // r, r) @ _dft_matrix(r, inverse)
+                ).reshape(rows, T, POINTS)
+
+    f16i, f16f = _dft_matrix(POINTS, True), _dft_matrix(POINTS, False)
+    # IFFT, decimation in frequency
+    regs = (regs @ f16i) * tw1.conj()
+    regs = exchange(regs, s.e1_w, s.e1_r) @ f16i
+    if r > 1:
+        regs = dft_r(exchange(regs * tw2.conj(), s.e2_w, s.e2_r), True)
+    # PA on the digit-reversed time samples, in registers
+    sat = _row_param(sat, lead, "cpu").reshape(-1, 1, 1)
+    coeff = _row_param(cubic_coeff, lead, "cpu").reshape(-1, 1, 1)
+    pr, pi = apply_pa_planar(regs.real, regs.imag, pa_model, sat, rapp_p, coeff)
+    regs = torch.complex(pr, pi)
+    # FFT: the IFFT's passes transposed, in reverse order
+    if r > 1:
+        regs = exchange(dft_r(regs, False), s.e2_r, s.e2_w) * tw2
+    regs = exchange(regs @ f16f, s.e1_r, s.e1_w) * tw1
+    regs = (regs @ f16f) * norm
+    out = torch.zeros(rows, n_io, dtype=regs.dtype)
+    keep = io >= 0
+    out[:, io[keep]] = regs[:, keep]
+    out = out.reshape(*lead, n_io)
+    return out.real.to(xr.dtype), out.imag.to(xi.dtype)
 
 
 def _row_param(v, lead, device) -> torch.Tensor:
@@ -148,7 +330,7 @@ def _launch(xr, xi, sat, coeff, pa_model, n_fft, mode, rapp_p):
     lib, _ = build_library()
     outr = torch.empty_like(xr)
     outi = torch.empty_like(xi)
-    rows = xr.numel() // xr.shape[-1] if xr.numel() else 0
+    rows = xr.numel() // xr.shape[-1]
     tw = _twiddles(n_fft, xr.device)
     stream = torch.cuda.current_stream(xr.device).cuda_stream
     err = lib.fused_ifft_pa_fft_launch(
@@ -180,11 +362,13 @@ def fused_ifft_pa_fft(xr: torch.Tensor, xi: torch.Tensor, sat,
     lead = xr.shape[:-1]
     sat = _row_param(sat, lead, xr.device)
     coeff = _row_param(cubic_coeff, lead, xr.device)
-    if xr.device.type == "cpu" or (xr.is_cuda and fused_ifft_pa_fft.force_plain):
+    if not (xr.is_cuda or xr.device.type == "cpu"):
+        raise ValueError(f"no kernel for device {xr.device}")
+    if xr.numel() == 0:                 # no rows: nothing to compute or launch
+        return torch.empty_like(xr), torch.empty_like(xi)
+    if xr.device.type == "cpu" or fused_ifft_pa_fft.force_plain:
         return fused_ifft_pa_fft_plain(xr, xi, sat, coeff, pa_model=pa_model,
                                        n_fft=n_fft, mode=mode, rapp_p=rapp_p)
-    if not xr.is_cuda:
-        raise ValueError(f"no kernel for device {xr.device}")
     out = _launch(xr, xi, sat, coeff, pa_model, n_fft, mode, rapp_p)
     fused_ifft_pa_fft.launches += 1
     return out

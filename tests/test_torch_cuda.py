@@ -87,6 +87,57 @@ def test_other_pa_models(cuda, model):
     assert _rel(k, p) < 1e-5
 
 
+@pytest.mark.parametrize("n_fft", [256, 512, 1024, 2048])
+@pytest.mark.parametrize("mode", ["sc", "full"])
+def test_ragged_last_block(cuda, n_fft, mode):
+    """37 rows: not a multiple of the 256 / (n_fft / 16) rows of a block."""
+    g = torch.Generator(device=cuda).manual_seed(n_fft + len(mode))
+    n_io = n_fft // 2 if mode == "sc" else n_fft
+    assert 37 % (256 // (n_fft // 16))
+    xr = torch.randn(37, n_io, generator=g, device=cuda)
+    xi = torch.randn(37, n_io, generator=g, device=cuda)
+    sat = torch.rand(37, generator=g, device=cuda) + 0.1
+    k, p = _both(xr, xi, sat, pa_model="softlim", n_fft=n_fft, mode=mode)
+    assert _rel(k, p) < 1e-5
+
+
+@pytest.mark.parametrize("n_fft", [256, 4096])
+def test_one_row(cuda, n_fft):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    xr = torch.randn(1, n_fft // 2, generator=g, device=cuda)
+    xi = torch.randn(1, n_fft // 2, generator=g, device=cuda)
+    k, p = _both(xr, xi, 0.4, pa_model="softlim", n_fft=n_fft, mode="sc")
+    assert _rel(k, p) < 1e-5
+
+
+def test_zero_rows_launch_nothing(cuda):
+    x = torch.zeros(0, 2048, device=cuda)
+    before = KERNEL.launches
+    kr, ki = KERNEL(x, x, 1.0, n_fft=4096)
+    assert kr.shape == ki.shape == (0, 2048) and kr.is_cuda
+    assert KERNEL.launches == before
+
+
+def test_sc_mode_narrow_band(cuda):
+    """n_sc = 256 of n_fft = 1024: most bins are guard band."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    xr = torch.randn(40, 256, generator=g, device=cuda)
+    xi = torch.randn(40, 256, generator=g, device=cuda)
+    k, p = _both(xr, xi, 0.3, pa_model="softlim", n_fft=1024, mode="sc")
+    assert _rel(k, p) < 1e-5
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_tx_shape(cuda, dtype, tol):
+    """The main path's TX launch: 128 frames x 64 antennas, n_sc 2048."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    xr = torch.randn(8192, 2048, generator=g, device=cuda).to(dtype)
+    xi = torch.randn(8192, 2048, generator=g, device=cuda).to(dtype)
+    sat = torch.rand(8192, generator=g, device=cuda) + 0.2
+    k, p = _both(xr, xi, sat, pa_model="softlim", n_fft=4096, mode="sc")
+    assert _rel(k, p) < tol
+
+
 def test_rejects_non_contiguous(cuda):
     x = torch.zeros(4, 1024, device=cuda)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):

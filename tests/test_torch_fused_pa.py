@@ -10,6 +10,8 @@ the JAX package on the CPU, where the wrapper runs its plain version:
   tests/test_kernels.py runs it, below 1e-5.
 """
 
+import math
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -169,3 +171,137 @@ def test_wrapper_rejects_bad_planes():
         fused_pa.fused_ifft_pa_fft(x.double(), x.double(), 1.0, n_fft=1024)
     with pytest.raises(ValueError):
         fused_pa.fused_ifft_pa_fft(x, x, 1.0, pa_model="bogus", n_fft=1024)
+
+
+# --- the kernel's schedule, modelled on the CPU (fused_ifft_pa_fft_staged) ---
+
+N_FFTS = [256, 512, 1024, 2048, 4096]
+
+
+def _staged(xr, xi, sat, coeff=0.0, **kw):
+    pr, pi = fused_pa.fused_ifft_pa_fft_staged(
+        torch.from_numpy(xr), torch.from_numpy(xi), torch.as_tensor(sat),
+        torch.as_tensor(coeff), **kw)
+    return pr.numpy() + 1j * pi.numpy()
+
+
+@pytest.mark.parametrize("n_fft,n_sc", [(4096, 2048), (1024, 512), (1024, 256)])
+def test_staged_sc_matches_jax_planar_io(n_fft, n_sc):
+    rng = np.random.default_rng(n_fft - n_sc)
+    dr, di = _planes(rng, (2, 3, n_sc))
+    sat = np.array([[0.2, 0.5, 1.3], [0.9, 0.31, 4.0]], np.float32)
+    jr, ji = _jax_sc(dr, di, n_fft, "softlim", sat)
+    got = _staged(dr, di, sat, pa_model="softlim", n_fft=n_fft, mode="sc")
+    assert got.shape == (2, 3, n_sc)
+    assert _rel(got, jr + 1j * ji) < 1e-5
+
+
+@pytest.mark.parametrize("sat", [1.5, 1e6])
+def test_staged_full_matches_pallas_kernel(interpret_pallas, sat):
+    fp = interpret_pallas
+    rng = np.random.default_rng(5)
+    scale = 1.0 if sat < 1e3 else 0.01
+    xr, xi = _planes(rng, (8, 4096), scale)
+    ref = np.asarray(fp.fused_ifft_clip_fft(jnp.asarray(xr + 1j * xi), sat, tile=4))
+    got = _staged(xr, xi, np.float32(sat), pa_model="softlim", n_fft=4096, mode="full")
+    assert _rel(got, ref) < 1e-5
+
+
+@pytest.mark.parametrize("n_fft", N_FFTS)
+@pytest.mark.parametrize("mode,io_div", [("sc", 2), ("sc", 4), ("full", 1)])
+def test_staged_matches_plain_every_size(n_fft, mode, io_div):
+    """Every radix-r tail (r = 1, 2, 4, 8, 16) and both I/O maps, on a
+    ragged [3, 5] batch of rows with per-row saturation powers."""
+    rng = np.random.default_rng(n_fft + io_div)
+    xr, xi = _planes(rng, (3, 5, n_fft // io_div))
+    sat = rng.uniform(0.2, 2.0, (3, 5)).astype(np.float32)
+    got = _staged(xr, xi, sat, pa_model="softlim", n_fft=n_fft, mode=mode)
+    pr, pi = fused_pa.fused_ifft_pa_fft_plain(
+        torch.from_numpy(xr), torch.from_numpy(xi), torch.from_numpy(sat),
+        torch.zeros(3, 5), pa_model="softlim", n_fft=n_fft, mode=mode)
+    assert _rel(got, pr.numpy() + 1j * pi.numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("model", ["rapp", "toi", "none"])
+def test_staged_other_pa_models_match_jax(model):
+    n_fft, n_sc = 2048, 1024
+    rng = np.random.default_rng(22)
+    dr, di = _planes(rng, (4, n_sc))
+    sat = np.array([0.3, 0.6, 1.0, 2.0], np.float32)
+    coeff = np.array([0.01, 0.05, 0.1, 0.2], np.float32)
+    jr, ji = _jax_sc(dr, di, n_fft, model, sat, coeff)
+    got = _staged(dr, di, sat, coeff, pa_model=model, n_fft=n_fft, mode="sc")
+    assert _rel(got, jr + 1j * ji) < 1e-5
+
+
+def _wavefronts(addrs):
+    """Shared-memory wavefronts of one half-warp's 16 float2 accesses:
+    the most distinct addresses on one 8-byte bank pair."""
+    pairs = {}
+    for a in addrs:
+        pairs.setdefault(int(a) % 16, set()).add(int(a))
+    return max(len(v) for v in pairs.values())
+
+
+@pytest.mark.parametrize("n_fft", N_FFTS)
+def test_exchange_layout_is_bank_conflict_free(n_fft):
+    """Each exchange writes every address of the row once, and for every
+    register each half-warp (16 consecutive threads of one row) reads or
+    writes 16 distinct bank pairs: one wavefront per access."""
+    s = fused_pa.schedule(n_fft)
+    tables = [s.e1_w, s.e1_r] + ([s.e2_w, s.e2_r] if s.radix > 1 else [])
+    assert (s.e2_w is None) == (n_fft == 256)
+    for e in tables:
+        assert e.shape == (s.threads, fused_pa.POINTS)
+        np.testing.assert_array_equal(np.sort(e.ravel()), np.arange(n_fft))
+        for hw in range(0, s.threads, 16):
+            for i in range(fused_pa.POINTS):
+                assert _wavefronts(e[hw:hw + 16, i]) == 1, (n_fft, hw, i)
+    if s.radix > 1:
+        # exchange 2 needs only __syncwarp(): whoever wrote the addresses a
+        # thread reads is in the same warp (rows start on 16-thread bounds)
+        writer = np.empty(n_fft, int)
+        writer[s.e2_w.ravel()] = np.repeat(np.arange(s.threads), fused_pa.POINTS)
+        for t in range(s.threads):
+            assert set(writer[s.e2_r[t]] // 32) == {t // 32}, (n_fft, t)
+
+
+@pytest.mark.parametrize("n_fft", N_FFTS)
+def test_twiddle_table_layout(n_fft):
+    s = fused_pa.schedule(n_fft)
+    tw = fused_pa.twiddle_table(n_fft)
+    assert tw.dtype == np.float32 and tw.shape == (16 * s.threads + 16 * s.radix, 2)
+    w = tw[:, 0] + 1j * tw[:, 1].astype(np.float64)
+    t, k = 7 % s.threads, 13
+    np.testing.assert_allclose(w[k * s.threads + t],
+                               np.exp(-2j * np.pi * t * k / n_fft), atol=1e-7)
+    a, c = s.radix - 1, 11
+    np.testing.assert_allclose(w[16 * s.threads + c * s.radix + a],
+                               np.exp(-2j * np.pi * 16 * a * c / n_fft), atol=1e-7)
+
+
+def _split_radix_flops(n):
+    """Split-radix operation count by its recurrence: a DIT stage of
+    ``N / 4`` butterflies costs ``6 N - 16``. Each butterfly has 12
+    additions and two twiddle products of 6 operations, except at k = 0
+    (no products) and k = N / 8 (4 operations each)."""
+    if n <= 4:
+        return {1: 0, 2: 4, 4: 16}[n]
+    return _split_radix_flops(n // 2) + 2 * _split_radix_flops(n // 4) + 6 * n - 16
+
+
+@pytest.mark.parametrize("n_fft", N_FFTS)
+def test_flops_per_row(n_fft):
+    pair = 2 * _split_radix_flops(n_fft)
+    assert fused_pa.flops_per_row(n_fft, "full") == pair
+    assert fused_pa.flops_per_row(n_fft, "sc") == pair - 3 * n_fft
+    # below the nominal radix-2 count 5 N log2 N a transform
+    assert pair < 2 * 5 * n_fft * math.log2(n_fft)
+
+
+def test_wrapper_zero_rows():
+    x = torch.zeros(0, 2048, dtype=torch.bfloat16)
+    before = fused_pa.fused_ifft_pa_fft.launches
+    pr, pi = fused_pa.fused_ifft_pa_fft(x, x, 1.0, n_fft=4096)
+    assert pr.shape == pi.shape == (0, 2048) and pr.dtype == torch.bfloat16
+    assert fused_pa.fused_ifft_pa_fft.launches == before
