@@ -13,18 +13,31 @@ Phases, each printing one JSON line:
    card (full/sc modes, f32/bf16 planes, every PA model, every n_fft, a
    ragged last block at every n_fft below 4096, one row and zero rows,
    n_sc = n_fft/4, and the TX shape in both dtypes).
-4. main path: the canonical frame (64-QAM, n_fft 4096, n_sc 2048, 64-antenna
-   ULA, MRT, Rayleigh, soft limiter at IBO 0 dB, 8 CNC iterations, bf16
-   storage) through ``make_round_fn``: CNC and MCNC rounds at full width,
-   with the kernel's launch count checked against the path's launches.
-5. frame: a small f32 frame with fixed draws through the kernel and through
-   the plain version forced on CUDA tensors; the counters must be equal.
+4. main path: bench.py's Rayleigh frame (the canonical config with the
+   Rayleigh channel: 64-QAM, n_fft 4096, n_sc 2048, 64-antenna ULA, MRT,
+   soft limiter at IBO 0 dB, 8 CNC iterations, bf16 storage) through
+   ``make_round_fn``: CNC and MCNC rounds at full width, with the kernel's
+   launch count checked against the path's launches and the counters
+   checked for sanity.
+5. frame: f32 frames at full width with fixed draws through the kernel and
+   through the plain version forced on CUDA tensors: the Rayleigh frame,
+   the canonical LOS planes and the complex64 branch; the counters must be
+   equal.
 6. timing: CUDA-event times of the kernel, its plain version and the
    torch.fft chain at the main path's two shapes (TX launch, CNC replica)
    in both plane dtypes, beside the kernel's bound and its share of it.
    ``ms`` is the mean over back-to-back calls, host time included, as the
    main path sees it; ``graph_ms`` replays the kernel's calls from a CUDA
    graph, which leaves its device time alone.
+7. canonical_los: the repo's canonical configuration, canonical_miso_cnc()
+   unchanged (LOS, RX rerolled per frame), CNC and MCNC rounds at full
+   width and Eb/N0 15 dB, with the same checks and frames/s.
+8. two_path / complex64: one full-width round per receiver of the two-path
+   channel on bf16 planes and of the complex64 branch on LOS at f32 chain
+   storage, with the same checks.
+9. sweep: miso_ber_vs_ebn0 at full width through the Monte-Carlo driver,
+   two Eb/N0 points of a few rounds each; its CSV (in a temporary
+   directory) must have the expected name and layout.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -38,10 +51,13 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
@@ -179,79 +195,187 @@ def kernel_checks(fp, dev) -> dict:
                                                       if c["tol"] <= 1e-5)}
 
 
-def canonical_cfg(config, alg: str, storage: str = "bfloat16"):
+N_ITERS = 8
+CANONICAL_EBN0_DB = 15.0       # the LOS phases' operating point (SNR 22.78 dB)
+
+
+def bench_rayleigh_cfg(config, alg: str, storage: str = "bfloat16"):
+    """bench.py's frame: the canonical config with the Rayleigh channel
+    (bench.py:66-114), which PRs 1-2 called "canonical" here."""
     cfg, _ = config.canonical_miso_cnc()
     return cfg.replace(channel=config.ChannelConfig(model="rayleigh"),
                        rx=dataclasses.replace(cfg.rx, algorithm=alg),
                        channel_storage=storage, mxu_fft_storage=storage)
 
 
-def main_path(fp, config, link, dev, batch: int, rounds: int, card: str = "") -> dict:
-    """Phase 4: CNC and MCNC rounds at full width through make_round_fn."""
+def canonical_cfg(config, alg: str, **changes):
+    """The repo's canonical configuration, canonical_miso_cnc() unchanged
+    (LOS, RX rerolled per frame, bf16 planes) but for the receiver and the
+    fields in ``changes``."""
+    cfg, _ = config.canonical_miso_cnc()
+    return cfg.replace(rx=dataclasses.replace(cfg.rx, algorithm=alg), **changes)
+
+
+def drive_path(fp, link, phase: str, cfg, dev, batch: int, rounds: int, snr: float,
+               warmup: int = 2, card: str = "") -> dict:
+    """``rounds`` timed rounds of ``batch`` frames through make_round_fn
+    after ``warmup``, with the kernel's launch count zeroed just before the
+    timed rounds and read just after. Fails unless the launches equal the
+    path's count (a TX launch and one launch per replica pass a round) and
+    the counters are sane: every BER in [0, 0.5), the clean BER below
+    iteration 0's, and for MCNC iteration 8 no worse than iteration 0."""
     kern = fp.fused_ifft_pa_fft
-    n_iters, snr = 8, 15.0
+    alg = cfg.rx.algorithm
+    round_fn = link.make_round_fn(cfg, N_ITERS, batch, device=dev)
+    for i in range(warmup):                 # allocator, kernel build
+        round_fn(0, 10_000 + i, snr)
+    torch.cuda.synchronize()
+    kern.launches = 0
+    t0 = time.perf_counter()
+    total = torch.zeros(N_ITERS + 2, dtype=torch.int64, device=dev)
+    for i in range(rounds):
+        total += round_fn(0, i, snr)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = kern.launches
+    counts = total.cpu().tolist()
+    expected = rounds * (1 + N_ITERS + 1)
+    n_bits = rounds * batch * cfg.modem.n_bits_per_ofdm_sym
+    ber = [c / n_bits for c in counts]
+    line = {"alg": alg, "channel": cfg.channel.model, "storage": cfg.channel_storage,
+            "mxu_storage": cfg.mxu_fft_storage, "batch": batch, "rounds": rounds,
+            "snr_db": snr, "counters": counts, "ber": ber, "launches": launches,
+            "expected_launches": expected, "launches_per_round": launches / rounds,
+            "seconds": dt, "frames_per_s": rounds * batch / dt,
+            "kernel_rows_per_frame": cfg.array.n_elements + (N_ITERS + 1) * (
+                cfg.array.n_elements if alg == "mcnc" else 1), "card": card}
+    print(json.dumps({"phase": phase, **line}), flush=True)
+    if launches != expected:
+        raise AssertionError(f"{phase} {alg}: {launches} kernel launches, expected {expected}")
+    if not all(0 <= b < 0.5 for b in ber) or not ber[0] < ber[1]:
+        raise AssertionError(f"{phase} {alg}: insane counters {counts}")
+    # MCNC cancels the clipping noise; CNC's single-PA replica does not
+    # model per-bin Rayleigh fading, and its iterations hurt there, as in
+    # the reference's committed curve (docs/CURVE_REPRODUCTION.md:169-178)
+    if alg == "mcnc" and not ber[-1] <= ber[1]:
+        raise AssertionError(f"{phase} mcnc: iteration 8 worse than iteration 0: {counts}")
+    return line
+
+
+def main_path(fp, config, link, dev, batch: int, rounds: int, card: str = "") -> dict:
+    """Phase 4: bench.py's Rayleigh frame, CNC and MCNC rounds at full width."""
+    return {alg: drive_path(fp, link, "main_path", bench_rayleigh_cfg(config, alg), dev,
+                            batch, rounds, 15.0, card=card)
+            for alg in ("cnc", "mcnc")}
+
+
+def los_paths(fp, config, link, dev, batch: int, rounds: int, snr: float,
+              card: str = "") -> dict:
+    """Phases 7 and 8: the canonical LOS configuration in CNC and MCNC
+    (``rounds`` timed rounds), then one round per receiver of the two-path
+    channel on bf16 planes and of the complex64 branch on LOS."""
     out = {}
     for alg in ("cnc", "mcnc"):
-        cfg = canonical_cfg(config, alg)
-        round_fn = link.make_round_fn(cfg, n_iters, batch, device=dev)
-        for i in range(2):                      # warm-up (allocator, kernel build)
-            round_fn(0, 10_000 + i, snr)
-        torch.cuda.synchronize()
-        kern.launches = 0
-        t0 = time.perf_counter()
-        total = torch.zeros(n_iters + 2, dtype=torch.int64, device=dev)
-        for i in range(rounds):
-            total += round_fn(0, i, snr)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = kern.launches
-        counts = total.cpu().tolist()
-        expected = rounds * (1 + n_iters + 1)    # TX + one per replica pass
-        n_bits = rounds * batch * cfg.modem.n_bits_per_ofdm_sym
-        ber = [c / n_bits for c in counts]
-        line = {"alg": alg, "batch": batch, "rounds": rounds, "snr_db": snr,
-                "counters": counts, "ber": ber, "launches": launches,
-                "expected_launches": expected, "seconds": dt,
-                "frames_per_s": rounds * batch / dt,
-                "kernel_rows_per_frame": cfg.array.n_elements + (n_iters + 1) * (
-                    cfg.array.n_elements if alg == "mcnc" else 1), "card": card}
-        print(json.dumps({"phase": "main_path", **line}), flush=True)
-        if launches != expected:
-            raise AssertionError(f"{alg}: {launches} kernel launches, expected {expected}")
-        if not all(0 <= b < 0.5 for b in ber) or not ber[0] < ber[1]:
-            raise AssertionError(f"{alg}: insane counters {counts}")
-        # MCNC cancels the clipping noise; CNC's single-PA replica does not
-        # model per-bin Rayleigh fading, and its iterations hurt there, as in
-        # the reference's committed curve (docs/CURVE_REPRODUCTION.md:169-178)
-        if alg == "mcnc" and not ber[-1] <= ber[1]:
-            raise AssertionError(f"mcnc: iteration 8 worse than iteration 0: {counts}")
-        out[alg] = line
+        out[f"los_{alg}"] = drive_path(fp, link, "canonical_los", canonical_cfg(config, alg),
+                                       dev, batch, rounds, snr, card=card)
+    for alg in ("cnc", "mcnc"):
+        two_path = canonical_cfg(config, alg, channel=config.ChannelConfig(model="two_path"))
+        out[f"two_path_{alg}"] = drive_path(fp, link, "two_path", two_path, dev, batch, 1,
+                                            snr, warmup=1, card=card)
+        complex_los = canonical_cfg(config, alg, channel_storage="complex64",
+                                    mxu_fft_storage="float32")
+        out[f"complex_los_{alg}"] = drive_path(fp, link, "complex64", complex_los, dev,
+                                               batch, 1, snr, warmup=1, card=card)
     return out
 
 
-def frame_kernel_vs_plain(fp, config, link, dev, batch: int = 2) -> dict:
-    """Phase 5: one f32 frame, fixed draws, kernel vs plain forced on CUDA."""
+def frame_kernel_vs_plain(fp, config, link, dev, snr_los: float, batch: int = 2) -> dict:
+    """Phase 5: f32 frames at full width with fixed draws, through the
+    kernel and through the plain version forced on CUDA tensors: bench.py's
+    Rayleigh frame (SNR 15 dB), the canonical LOS planes and the complex64
+    branch on LOS (Eb/N0 15 dB)."""
     kern = fp.fused_ifft_pa_fft
-    res = {}
+    frames = {}
     for alg in ("cnc", "mcnc"):
-        cfg = canonical_cfg(config, alg, "float32")
-        frame = link.make_frame_fn(cfg, 8, device=dev)
+        frames[f"rayleigh_{alg}"] = (bench_rayleigh_cfg(config, alg, "float32"), 15.0)
+        frames[f"los_{alg}"] = (canonical_cfg(config, alg, channel_storage="float32",
+                                              mxu_fft_storage="float32"), snr_los)
+        frames[f"complex_los_{alg}"] = (canonical_cfg(config, alg, channel_storage="complex64",
+                                                      mxu_fft_storage="float32"), snr_los)
+    res = {}
+    for name, (cfg, snr) in frames.items():
+        frame = link.make_frame_fn(cfg, N_ITERS, device=dev)
         draws = link.FrameDraws.draw(cfg, batch, torch.Generator(device=dev).manual_seed(7))
         got = {}
         for plain in (False, True):
             kern.force_plain = plain
             try:
-                c = frame(15.0, draws)
+                c = frame(snr, draws)
             finally:
                 kern.force_plain = False
             got[plain] = [c.clean_err.cpu().tolist(), c.dist_err.cpu().tolist()]
-        line = {"alg": alg, "batch": batch, "kernel": got[False], "plain": got[True],
-                "equal": got[False] == got[True]}
+        line = {"frame": name, "alg": cfg.rx.algorithm, "batch": batch, "snr_db": snr,
+                "kernel": got[False], "plain": got[True], "equal": got[False] == got[True]}
         print(json.dumps({"phase": "frame", **line}), flush=True)
         if not line["equal"]:
-            raise AssertionError(f"{alg}: kernel and plain frames disagree: {line}")
-        res[alg] = line
+            raise AssertionError(f"{name}: kernel and plain frames disagree: {line}")
+        res[name] = line
     return res
+
+
+def sweep(fp, config, results, ber_sweeps, dev, batch: int, card: str = "") -> dict:
+    """Phase 9: miso_ber_vs_ebn0 (canonical LOS, 64 antennas, CNC, 8
+    iterations) at two Eb/N0 points through the Monte-Carlo driver, with a
+    bit budget of 3 rounds a point (the pipeline adds up to 2). The CSV
+    goes to a temporary directory; its name must be results'
+    ber_sweep_filename and its layout Eb/N0, the clean row, it0..it8."""
+    kern = fp.fused_ifft_pa_fft
+    cfg, _ = config.canonical_miso_cnc()
+    n_ant = cfg.array.n_elements
+    n_bits_round = batch * cfg.modem.n_bits_per_ofdm_sym
+    ebn0 = (10.0, 15.0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_csv_")
+    old = os.environ.get("MIMO_OFDM_TPU_TORCH_RESULTS")
+    os.environ["MIMO_OFDM_TPU_TORCH_RESULTS"] = tmp
+    try:
+        torch.cuda.synchronize()
+        kern.launches = 0
+        t0 = time.perf_counter()
+        res = ber_sweeps.miso_ber_vs_ebn0(
+            channels=("los",), n_ant=n_ant, n_iters=N_ITERS, ebn0_min=ebn0[0],
+            ebn0_max=ebn0[1],
+            ebn0_step=ebn0[1] - ebn0[0], n_err_min=10 ** 9,
+            bits_sent_max=3 * n_bits_round, batch=batch, verbose=False,
+            device=dev)["los"]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = kern.launches
+        name = results.ber_sweep_filename("ber_vs_ebn0", "cnc", "los", n_ant, 0.0,
+                                          res.param_values, list(range(1, N_ITERS + 1)))
+        files = sorted(os.listdir(tmp))
+        x, ber = results.load_ber_sweep(name, tmp) if files == [name + ".csv"] else (None, None)
+    finally:
+        if old is None:
+            os.environ.pop("MIMO_OFDM_TPU_TORCH_RESULTS")
+        else:
+            os.environ["MIMO_OFDM_TPU_TORCH_RESULTS"] = old
+        shutil.rmtree(tmp, ignore_errors=True)
+    rounds = [p.n_rounds for p in res.points]
+    line = {"points": list(ebn0), "rounds_per_point": rounds, "launches": launches,
+            "expected_launches": sum(rounds) * (N_ITERS + 2), "seconds": dt,
+            "frames_per_s": sum(rounds) * batch / dt, "csv": files, "expected_csv": name + ".csv",
+            "ber": None if ber is None else ber.tolist(), "card": card}
+    print(json.dumps({"phase": "sweep", **line}), flush=True)
+    if x is None:
+        raise AssertionError(f"sweep: expected one CSV {name}.csv, found {files}")
+    if list(x) != list(ebn0) or ber.shape != (N_ITERS + 2, len(ebn0)):
+        raise AssertionError(f"sweep: CSV layout {len(x)} x {ber.shape}, expected "
+                             f"Eb/N0 {ebn0} then {N_ITERS + 2} rows")
+    if not np.all((0 <= ber) & (ber < 0.5)) or not np.all(ber[0] < ber[1]):
+        raise AssertionError(f"sweep: insane BER rows {ber.tolist()}")
+    if launches != line["expected_launches"] or not all(3 <= r <= 5 for r in rounds):
+        raise AssertionError(f"sweep: {launches} launches over rounds {rounds}")
+    return line
 
 
 def timing(fp, ofdm, dev, batch: int, card: str = "", n_fft: int = 4096,
@@ -298,7 +422,10 @@ def timing(fp, ofdm, dev, batch: int, card: str = "", n_fft: int = 4096,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=128, help="frames per round")
-    ap.add_argument("--rounds", type=int, default=20, help="timed rounds per arm")
+    ap.add_argument("--rounds", type=int, default=20,
+                    help="timed rounds per arm of bench.py's Rayleigh frame")
+    ap.add_argument("--los-rounds", type=int, default=5,
+                    help="timed rounds per arm of the canonical LOS configuration")
     ap.add_argument("--out", default=None, help="also write all results as JSON here")
     args = ap.parse_args()
 
@@ -306,10 +433,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mimo_ofdm_tpu_torch.experiments import ber_sweeps
     from mimo_ofdm_tpu_torch.kernels import fused_pa as fp
     from mimo_ofdm_tpu_torch.models import link
-    from mimo_ofdm_tpu_torch.ops import ofdm
-    from mimo_ofdm_tpu_torch.utils import config
+    from mimo_ofdm_tpu_torch.ops import metrics, ofdm
+    from mimo_ofdm_tpu_torch.utils import config, results
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -331,9 +459,12 @@ def main() -> int:
         raise AssertionError(f"4096-point instantiations spill: {spills}")
 
     emit("kernel_summary", **kernel_checks(fp, dev))
+    snr_los = float(metrics.ebn0_to_snr(CANONICAL_EBN0_DB, 2048, 2048, 64))
     paths = main_path(fp, config, link, dev, args.batch, args.rounds, smi)
-    frame_kernel_vs_plain(fp, config, link, dev)
+    frame_kernel_vs_plain(fp, config, link, dev, snr_los)
     times = timing(fp, ofdm, dev, args.batch, smi)
+    paths.update(los_paths(fp, config, link, dev, args.batch, args.los_rounds, snr_los, smi))
+    paths["sweep"] = sweep(fp, config, results, ber_sweeps, dev, args.batch, smi)
 
     tx = times["tx"]
     launches = sum(p["launches"] for p in paths.values())
@@ -342,7 +473,9 @@ def main() -> int:
         "source": "mimo_ofdm_tpu_torch/csrc/fused_pa.cu",
         "replaces": "mimo_ofdm_tpu/kernels/fused_pa.py:113",
         "replaces_function": "mimo_ofdm_tpu/kernels/fused_pa.py::fused_ifft_clip_fft",
-        "launches": launches, "max_abs_err": tx["max_abs_err"],
+        "launches": launches,
+        "launches_by_path": {k: p["launches"] for k, p in paths.items()},
+        "max_abs_err": tx["max_abs_err"],
         "max_rel_err": RESULTS["kernel_summary"]["worst_rel_err"],
         "ms": tx["ms"], "plain_ms": tx["plain_ms"], "bound_ms": tx["bound_ms"],
         "bound_by": tx["bound_by"], "library_ms": tx["library_ms"],

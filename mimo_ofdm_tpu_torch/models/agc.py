@@ -1,0 +1,53 @@
+"""Receiver AGC / equalization vectors and noise scalers on the data
+subcarriers (port of ``mimo_ofdm_tpu/models/agc.py:42-55,110-149``).
+
+* ``hk_vk_agc_sc``    = ``sum_ant H o V``, the effective SISO channel of the
+  clean signal;
+* ``ak_hk_vk_agc_sc`` = the same with the per-antenna Bussgang gain ``a_k``,
+  the effective channel of the distorted signal's linear part;
+* ``*_noise_scaler``  = mean ``|.|^2`` over subcarriers, which sets the AWGN
+  power so that the post-AGC SNR is the requested one
+  (``reference/mp_model.py:163,212,290-329``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from mimo_ofdm_tpu_torch.models.precoding import (per_antenna_alpha,
+                                                  precoding_power_per_antenna)
+
+
+class AgcStateSc(NamedTuple):
+    """Subcarrier-domain AGC state of a batch of frames."""
+    hk_vk_agc_sc: torch.Tensor          # [..., n_sc] clean-signal equalizer
+    hk_vk_noise_scaler: torch.Tensor    # [...]
+    ak_hk_vk_agc_sc: torch.Tensor       # [..., n_sc] distorted-signal equalizer
+    ak_hk_vk_noise_scaler: torch.Tensor  # [...]
+    ak_vect: torch.Tensor               # [..., n_ant] per-antenna Bussgang gains
+
+
+def compute_agc_sc(h_sc: torch.Tensor, v: torch.Tensor, ibo_db: float,
+                   n_ant: int, alpha_override: float | None = None) -> AgcStateSc:
+    """AGC state from the channel ``h_sc`` and precoder ``v``, both
+    ``[..., n_ant, n_sc]`` (``reference/mp_model.py:290-329``).
+    ``alpha_override`` replaces the per-antenna Bussgang closed form with a
+    constant, for PA models without one (``reference/corrector.py:146-147``)."""
+    n_sc = h_sc.shape[-1]
+    vk_pow_vec = precoding_power_per_antenna(v)
+    hk_vk = h_sc * v
+    hk_vk_avg = hk_vk.sum(-2)
+    if alpha_override is None:
+        ak_vect = per_antenna_alpha(ibo_db, vk_pow_vec, n_sc, n_ant)
+    else:
+        ak_vect = torch.full_like(vk_pow_vec, alpha_override)
+    ak_hk_vk_avg = (ak_vect[..., None].to(hk_vk.dtype) * hk_vk).sum(-2)
+    return AgcStateSc(
+        hk_vk_agc_sc=hk_vk_avg,
+        hk_vk_noise_scaler=(hk_vk_avg.abs() ** 2).mean(-1),
+        ak_hk_vk_agc_sc=ak_hk_vk_avg,
+        ak_hk_vk_noise_scaler=(ak_hk_vk_avg.abs() ** 2).mean(-1),
+        ak_vect=ak_vect,
+    )

@@ -19,14 +19,41 @@ def ula_positions(n_elements: int, center_freq: float, wav_len_spacing: float = 
     return np.stack([x, np.zeros(n_elements), np.full(n_elements, cord_z)], axis=1)
 
 
+def uca_positions(n_elements: int, center_freq: float, wav_len_spacing: float = 0.5,
+                  cord_z: float = 0.0) -> np.ndarray:
+    """Uniform circular (semicircular) array on the X-Y plane
+    (``reference/antenna_array.py:461-479``): radius ``lambda (n-1) / (2 pi)``,
+    points on a semicircumference (``reference/utilities.py:158-167``)."""
+    lam = C_LIGHT / center_freq
+    radius = lam * (n_elements - 1) / (2.0 * np.pi)
+    ang = np.pi / n_elements * np.arange(n_elements)
+    return np.stack([np.cos(ang) * radius, np.sin(ang) * radius,
+                     np.full(n_elements, cord_z)], axis=1)
+
+
+def ura_positions(n_rows: int, n_cols: int, center_freq: float,
+                  wav_len_spacing: float = 0.5, cord_z: float = 0.0) -> np.ndarray:
+    """Uniform rectangular array on the X-Z plane
+    (``reference/antenna_array.py:496-520``): ``n_cols`` elements per row
+    along X, ``n_rows`` per column along Z, X outer and Z inner."""
+    lam = C_LIGHT / center_freq
+    col_half = (n_rows - 1) * wav_len_spacing * lam / 2.0
+    row_half = (n_cols - 1) * wav_len_spacing * lam / 2.0
+    z = np.linspace(-col_half, col_half, n_rows) if n_rows > 1 else np.zeros(1)
+    x = np.linspace(-row_half, row_half, n_cols) if n_cols > 1 else np.zeros(1)
+    xg, zg = np.meshgrid(x, z, indexing="ij")
+    xs, zs = xg.ravel(), zg.ravel()
+    return np.stack([xs, np.zeros_like(xs), cord_z + zs], axis=1)
+
+
 def array_positions(geometry: str, n_elements: int, center_freq: float,
                     wav_len_spacing: float = 0.5, cord_z: float = 0.0,
                     n_rows: int = 1, n_cols: int = 1) -> np.ndarray:
-    """Element positions of the configured array. Only the linear array is
-    ported so far; the circular and planar arrays wait for a later slice."""
+    """Element positions of the configured array."""
     if geometry == "linear":
         return ula_positions(n_elements, center_freq, wav_len_spacing, cord_z=cord_z)
-    if geometry in ("circular", "planar"):
-        raise NotImplementedError(
-            f"{geometry!r} arrays are not ported yet (ROADMAP queue 1, item B)")
+    if geometry == "circular":
+        return uca_positions(n_elements, center_freq, wav_len_spacing, cord_z=cord_z)
+    if geometry == "planar":
+        return ura_positions(n_rows, n_cols, center_freq, wav_len_spacing, cord_z=cord_z)
     raise ValueError(f"unknown array geometry {geometry!r}")

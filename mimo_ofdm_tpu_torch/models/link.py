@@ -8,22 +8,35 @@ per-pass bit-error counts. ``make_round_fn`` wraps it into the unit of
 work the Monte-Carlo loop schedules: a batch of frames with its counters
 summed into one int32 vector ``[clean, it0..itN]``.
 
-So far only planar-eligible configs run (``models/link_planar.py``); the
-complex64 branch waits for a later slice.
+Two branches, as in the JAX package: the planar path
+(``models/link_planar.py``) for single-user MRT on the LOS, two-path and
+Rayleigh channels with perfect CSI, and the complex64 branch here for
+everything else the port covers (the AWGN channel, the ``none`` and
+``phase`` precoders, both CSI-error models, ``channel_storage="complex64"``,
+transforms the kernel does not take). Multi-user links and the
+``rician``, ``random_paths``, ``tdl_3gpp`` and ``gscm`` channels raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from mimo_ofdm_tpu_torch.models import geometry
+from mimo_ofdm_tpu_torch.models import agc as agc_mod
+from mimo_ofdm_tpu_torch.models import (channels, geometry, precoding,
+                                        receivers, transmit)
 from mimo_ofdm_tpu_torch.ops import bits as bits_ops
-from mimo_ofdm_tpu_torch.ops import ofdm
+from mimo_ofdm_tpu_torch.ops import noise as noise_ops
+from mimo_ofdm_tpu_torch.ops import ofdm, pa
 from mimo_ofdm_tpu_torch.utils.config import LinkConfig
 from mimo_ofdm_tpu_torch.utils.device import resolve_device
+
+GEOMETRIC_CHANNELS = ("los", "two_path")
+PORTED_CHANNELS = ("awgn", "los", "two_path", "rayleigh")
 
 
 class FrameCounters(NamedTuple):
@@ -36,45 +49,68 @@ class FrameDraws(NamedTuple):
     """Pre-drawn randoms of ``B`` frames (JAX's threefry stream cannot be
     reproduced in torch, so a frame takes its randoms from here).
 
-    * ``fade``: ``[B, 2, n_ant, n_sc]`` unit normals (real, imag planes);
+    * ``fade``: ``[B, 2, n_ant, n_sc]`` unit normals (real, imag planes) of
+      the Rayleigh channel, else None;
     * ``bits_c`` / ``bits_d``: ``[B, n_bits]`` payload bits of the clean and
       distorted runs;
-    * ``noise_c`` / ``noise_d``: ``[B, 2, n_sc]`` unit normals (real, imag).
+    * ``noise_c`` / ``noise_d``: ``[B, 2, n_sc]`` unit normals (real, imag);
+    * ``loc``: ``[B, 2]`` RX offsets in x and y, uniform in
+      ``+-loc_var/2``, when the geometric channels are rerolled, else None;
+    * ``csi``: ``[B, 2, n_ant, n_sc]`` unit normals of the CSI error, when
+      the config has one, else None.
     """
-    fade: torch.Tensor
+    fade: torch.Tensor | None
     bits_c: torch.Tensor
     bits_d: torch.Tensor
     noise_c: torch.Tensor
     noise_d: torch.Tensor
+    loc: torch.Tensor | None = None
+    csi: torch.Tensor | None = None
+
+    @property
+    def batch(self) -> int:
+        return self.bits_d.shape[0]
 
     @staticmethod
-    def from_numpy(fade, bits_c, bits_d, noise_c, noise_d,
+    def from_numpy(fade, bits_c, bits_d, noise_c, noise_d, loc=None, csi=None,
                    device="cpu") -> "FrameDraws":
-        """Tensors on ``device`` from numpy arrays: normals as float32, bits
-        as int8."""
+        """Tensors on ``device`` from numpy arrays (or None): normals and
+        offsets as float32, bits as int8."""
         def f32(a):
-            return torch.as_tensor(np.array(a, np.float32), device=device)
+            return (None if a is None
+                    else torch.as_tensor(np.array(a, np.float32), device=device))
 
         def i8(a):
             return torch.as_tensor(np.array(a, np.int8), device=device)
         return FrameDraws(f32(fade), i8(bits_c), i8(bits_d), f32(noise_c),
-                          f32(noise_d))
+                          f32(noise_d), f32(loc), f32(csi))
 
     @staticmethod
     def draw(cfg: LinkConfig, batch: int, generator: torch.Generator,
-             fade_dtype: torch.dtype = torch.float32) -> "FrameDraws":
-        """Draw ``batch`` frames' randoms from ``generator`` on its device;
-        the fade directly in ``fade_dtype`` (the plane storage dtype)."""
+             fade_dtype: torch.dtype = torch.float32,
+             reroll: bool = True) -> "FrameDraws":
+        """Draw ``batch`` frames' randoms from ``generator`` on its device,
+        only those the config uses; the fade directly in ``fade_dtype``
+        (the plane storage dtype)."""
         dev = generator.device
         n_ant, n_sc = cfg.array.n_elements, cfg.modem.n_sub_carr
         n_bits = cfg.modem.n_bits_per_ofdm_sym
-        fade = torch.randn((batch, 2, n_ant, n_sc), generator=generator,
-                           device=dev, dtype=fade_dtype)
+        model = cfg.channel.model
+
+        def normals(*shape, dtype=torch.float32):
+            return torch.randn((batch, *shape), generator=generator,
+                               device=dev, dtype=dtype)
+        fade = normals(2, n_ant, n_sc, dtype=fade_dtype) if model == "rayleigh" else None
         bits_c = bits_ops.random_payload_bits(generator, (batch, n_bits))
         bits_d = bits_ops.random_payload_bits(generator, (batch, n_bits))
-        noise_c = torch.randn((batch, 2, n_sc), generator=generator, device=dev)
-        noise_d = torch.randn((batch, 2, n_sc), generator=generator, device=dev)
-        return FrameDraws(fade, bits_c, bits_d, noise_c, noise_d)
+        noise_c, noise_d = normals(2, n_sc), normals(2, n_sc)
+        loc = None
+        if reroll and model in GEOMETRIC_CHANNELS:
+            u = torch.rand((batch, 2), generator=generator, device=dev)
+            loc = u * cfg.rx.loc_var - cfg.rx.loc_var / 2.0
+        csi = (normals(2, n_ant, n_sc)
+               if cfg.csi_epsilon or cfg.csi_snr_db is not None else None)
+        return FrameDraws(fade, bits_c, bits_d, noise_c, noise_d, loc, csi)
 
 
 def link_static(cfg: LinkConfig, device="cpu"):
@@ -93,26 +129,222 @@ def link_static(cfg: LinkConfig, device="cpu"):
     return f32(tx_pos), f32(freqs), f32(rx_base)
 
 
+def rx_positions(rx_base: torch.Tensor, loc: torch.Tensor | None) -> torch.Tensor:
+    """Rerolled RX positions ``[B, 3]``: the base position moved by the
+    frames' x/y offsets (``reference/mp_model.py:140-150``; each axis uses
+    its own base, as in the JAX package)."""
+    if loc is None:
+        raise ValueError("the geometric channel is rerolled, but the draws "
+                         "carry no RX offsets (FrameDraws.loc)")
+    loc = loc.to(rx_base.device)
+    return rx_base + torch.cat([loc, torch.zeros_like(loc[:, :1])], dim=-1)
+
+
+def bussgang_override(cfg: LinkConfig) -> float | None:
+    """The Bussgang gain that replaces the closed form: the TOI PA's
+    estimate (``reference/corrector.py:146-147``), 1 for the linear PA,
+    else None (use the soft limiter's closed form)."""
+    if cfg.pa.model == "toi":
+        return cfg.pa.alpha_estimate
+    if cfg.pa.model == "none":
+        return 1.0
+    return None
+
+
+def frame_signature(frame, ibo_as_arg: bool, ibo_db: float):
+    """``frame(snr_db, ibo_db, draws, batch, generator)`` as the public
+    ``frame_fn(snr_db, draws=None, *, batch=None, generator=None)`` at the
+    config's IBO, or with ``ibo_as_arg`` as ``frame_fn(snr_db, ibo_db,
+    draws=None, ...)``."""
+    if ibo_as_arg:
+        def frame_fn_ibo(snr_db, ibo_db: float, draws: FrameDraws | None = None,
+                         *, batch: int | None = None,
+                         generator: torch.Generator | None = None) -> FrameCounters:
+            return frame(snr_db, ibo_db, draws, batch, generator)
+        return frame_fn_ibo
+
+    def frame_fn(snr_db, draws: FrameDraws | None = None, *,
+                 batch: int | None = None,
+                 generator: torch.Generator | None = None) -> FrameCounters:
+        return frame(snr_db, ibo_db, draws, batch, generator)
+
+    return frame_fn
+
+
+def _check_ported(cfg: LinkConfig) -> None:
+    """Raise ``NotImplementedError`` for the parts of the JAX package's
+    frame that later slices port, naming their ROADMAP item."""
+    if (cfg.modem.n_users != 1 or cfg.precoding == "zf"
+            or cfg.rx.algorithm in ("cnc_mu", "mcnc_mu")):
+        raise NotImplementedError(
+            "multi-user links (n_users > 1, zf precoding, cnc_mu/mcnc_mu "
+            "receivers) are not ported yet (ROADMAP queue 1: multi-user)")
+    if cfg.channel.model not in PORTED_CHANNELS:
+        raise NotImplementedError(
+            f"the {cfg.channel.model!r} channel is not ported yet (ROADMAP "
+            "queue 1: rician, random_paths, tdl_3gpp and gscm)")
+    if cfg.rx.algorithm not in ("cnc", "mcnc", "none"):
+        raise ValueError(f"unsupported rx algorithm {cfg.rx.algorithm!r}")
+
+
+def make_channel_fn(cfg: LinkConfig, freqs: torch.Tensor,
+                    rx_base: torch.Tensor, reroll: bool):
+    """Channel generator ``channel_fn(tx_pos, draws=None) -> [..., n_ant,
+    n_f]`` complex64 (``mimo_ofdm_tpu/models/link.py:54-126``). The
+    geometric channels move the RX by ``draws.loc`` when ``reroll``
+    (``reference/mp_model.py:140-150``); Rayleigh takes ``draws.fade``
+    (``reference/mp_model.py:154``). Without a reroll a geometric channel
+    has no batch dim."""
+    _check_ported(cfg)
+    model = cfg.channel.model
+    skip_att = cfg.channel.skip_attenuation
+
+    def channel_fn(tx_pos: torch.Tensor, draws: FrameDraws | None = None):
+        if model == "awgn":
+            return torch.ones((tx_pos.shape[0], freqs.shape[-1]),
+                              dtype=torch.complex64, device=freqs.device)
+        if model == "rayleigh":
+            return channels.rayleigh_channel(draws.fade.to(freqs.device), tx_pos,
+                                             rx_base, freqs, skip_att)
+        rx_pos = rx_positions(rx_base, draws.loc) if reroll else rx_base
+        if model == "los":
+            return channels.los_channel(tx_pos, rx_pos, freqs, skip_att)
+        return channels.two_path_channel(tx_pos, rx_pos, freqs, skip_att)
+
+    return channel_fn
+
+
 def make_frame_fn(cfg: LinkConfig, n_iters: int, *, incl_clean: bool = True,
-                  device=None):
+                  reroll: bool = True, ibo_as_arg: bool = False, device=None):
     """Build ``frame_fn(snr_db, draws=None, *, batch=None, generator=None)
     -> FrameCounters`` on ``device`` (``cuda`` unless ``device="cpu"``).
 
     One call runs ``B`` frames of the reference's clean + distorted
     while-loop bodies (``reference/mp_model.py:136-222``); the distorted run
-    feeds the CNC/MCNC receiver and errors are counted per pass. Configs
-    the planar path does not cover raise ``NotImplementedError``."""
+    feeds the CNC/MCNC receiver and errors are counted per pass. Without
+    ``draws`` the frame draws ``batch`` frames from ``generator``.
+    ``reroll`` moves the RX of a geometric channel per frame.
+    ``ibo_as_arg=True`` gives ``frame_fn(snr_db, ibo_db, draws=None, ...)``
+    with the IBO, a Python float, taken per call (one frame function for a
+    whole IBO sweep)."""
     from mimo_ofdm_tpu_torch.models import link_planar
 
     dev = resolve_device(device)
-    if cfg.channel_storage == "complex64" or not link_planar.planar_eligible(cfg):
-        raise NotImplementedError(
-            "only planar-eligible configs with channel_storage 'bfloat16' or "
-            "'float32' are ported; the complex64 branch of make_frame_fn "
-            "waits for a later slice (ROADMAP queue 1)")
-    return link_planar.make_planar_frame_fn(
-        cfg, n_iters, incl_clean=incl_clean, storage=cfg.channel_storage,
-        device=dev)
+    _check_ported(cfg)
+    if cfg.channel_storage != "complex64" and link_planar.planar_eligible(cfg):
+        return link_planar.make_planar_frame_fn(
+            cfg, n_iters, incl_clean=incl_clean, reroll=reroll,
+            storage=cfg.channel_storage, ibo_as_arg=ibo_as_arg, device=dev)
+    return _make_complex_frame_fn(cfg, n_iters, incl_clean, reroll,
+                                  ibo_as_arg, dev)
+
+
+def _make_complex_frame_fn(cfg: LinkConfig, n_iters: int, incl_clean: bool,
+                           reroll: bool, ibo_as_arg: bool, dev: torch.device):
+    """The complex64 branch of :func:`make_frame_fn`
+    (``mimo_ofdm_tpu/models/link.py:162-311``)."""
+    m = cfg.modem.constel_size
+    n_fft, n_sc = cfg.modem.n_fft, cfg.modem.n_sub_carr
+    n_ant = cfg.array.n_elements
+    avg_sym_pow = cfg.modem.avg_symbol_power
+    avg_samp_pow = cfg.modem.avg_sample_power
+    pa_model = cfg.pa.model
+    rapp_p = cfg.pa.rapp_p_hardness
+    mxu = dict(use_mxu_fft=cfg.use_mxu_fft, mxu_storage=cfg.mxu_fft_storage)
+    csi_err = bool(cfg.csi_epsilon) or cfg.csi_snr_db is not None
+    alpha_override = bussgang_override(cfg)
+
+    tx_pos, freqs, rx_base = link_static(cfg, dev)
+    # the receivers observe the data subcarriers only, so the channel,
+    # noise and AGC live on the n_sc grid
+    freqs_sc = ofdm.extract_subcarriers(freqs, n_sc)
+    channel_fn = make_channel_fn(cfg, freqs_sc, rx_base, reroll)
+    precoder = precoding.make_precoder(cfg.precoding, cfg.modem.n_users)
+
+    def _frame(snr_db, ibo_db: float, draws: FrameDraws | None,
+               batch: int | None, generator: torch.Generator | None
+               ) -> FrameCounters:
+        ibo_db = float(ibo_db)
+        if draws is None:
+            draws = FrameDraws.draw(cfg, batch, generator, reroll=reroll)
+        b = draws.batch
+        h_sc = channel_fn(tx_pos, draws).expand(b, n_ant, n_sc)   # true channel
+        if cfg.csi_epsilon:
+            # CSI error on the data bins (reference/mp_model.py:264-284)
+            p = (h_sc.abs() ** 2).mean(-1, keepdim=True)
+            csi_noise = noise_ops.complex_normal(draws.csi.to(dev).movedim(-3, -2))
+            h_pre_sc = (math.sqrt(1.0 - cfg.csi_epsilon ** 2) * h_sc
+                        + csi_noise * torch.sqrt(p).to(h_sc.dtype) * cfg.csi_epsilon)
+        elif cfg.csi_snr_db is not None:
+            # additive CSI noise at a fixed CSI SNR against the frame's mean
+            # per-bin channel power
+            p = (h_sc.abs() ** 2).mean((-2, -1), keepdim=True)
+            sigma2 = p / (10.0 ** (cfg.csi_snr_db / 10.0))
+            csi_noise = noise_ops.complex_normal(draws.csi.to(dev).movedim(-3, -2))
+            h_pre_sc = h_sc + csi_noise * torch.sqrt(sigma2).to(h_sc.dtype)
+        else:
+            h_pre_sc = h_sc
+
+        v = precoder(h_pre_sc)                            # [B, n_ant, n_sc]
+        sat_pow = precoding.pa_sat_power(ibo_db, avg_samp_pow, v)[:, None]
+        # for TOI the IBO is the intercept point against the precoded
+        # average power (reference/distortion.py:222-228)
+        toi_coeff = (pa.toi_to_cubic_coeff(
+            ibo_db, avg_samp_pow * precoding.avg_precoding_gain(v))[:, None]
+            if pa_model == "toi" else 0.0)
+        agc = agc_mod.compute_agc_sc(h_pre_sc, v, ibo_db, n_ant,
+                                     alpha_override=alpha_override)
+
+        # clean run (reference/mp_model.py:136-175): without the PA the TX
+        # (I)FFT round trip is the identity, so the symbols meet the
+        # combined H o V vector
+        if incl_clean:
+            bits_c = draws.bits_c.to(dev)
+            sym_c = transmit.modulate_users(bits_c, m)
+            # under CSI error, propagation uses the TRUE channel while the
+            # AGC vector comes from the noisy one
+            hv_true = channels.propagate(h_sc, v) if csi_err else agc.hk_vk_agc_sc
+            rx_c = noise_ops.awgn(sym_c * hv_true, snr_db,
+                                  avg_sym_pow * agc.hk_vk_noise_scaler,
+                                  noise_ops.complex_normal(draws.noise_c.to(dev)))
+            rx_bits_c = receivers.standard_receive_sc(rx_c / agc.hk_vk_agc_sc, m)
+            clean_err = bits_ops.count_bit_errors(bits_c, rx_bits_c, axis=-1)
+        else:
+            clean_err = torch.zeros(b, dtype=torch.int32, device=dev)
+
+        # distorted run (reference/mp_model.py:180-222): one fused-chain
+        # launch over the B x n_ant rows
+        bits_d = draws.bits_d.to(dev)
+        sym_d = transmit.modulate_users(bits_d, m)
+        fd_dist_sc = transmit.ifft_pa_fft_sc(
+            transmit.precode_symbols(sym_d, v), n_fft, pa_model, sat_pow,
+            rapp_p, toi_coeff, **mxu)
+        rx_d = noise_ops.awgn(channels.propagate(h_sc, fd_dist_sc), snr_db,
+                              avg_sym_pow * agc.ak_hk_vk_noise_scaler,
+                              noise_ops.complex_normal(draws.noise_d.to(dev)))
+        rx_sc = rx_d / agc.ak_hk_vk_agc_sc
+
+        if cfg.rx.algorithm == "cnc":
+            replica = receivers.make_cnc_replica(
+                m, n_fft, n_sc, ibo_db, pa_model, alpha=alpha_override,
+                rapp_p=rapp_p, **mxu)
+            bits_all, _ = receivers.cnc_iterate(rx_sc, n_iters, m, replica)
+        elif cfg.rx.algorithm == "mcnc":
+            # the MCNC replica uses the *precoding* channel (noisy under CSI
+            # error, reference/mp_model.py:115-119) and the ak AGC vector
+            replica = receivers.make_mcnc_replica(
+                h_pre_sc, v, agc.ak_hk_vk_agc_sc, constel_size=m, n_fft=n_fft,
+                n_sc=n_sc, pa_model=pa_model, sat_power=sat_pow, rapp_p=rapp_p,
+                toi_coeff=toi_coeff, **mxu)
+            bits_all, _ = receivers.cnc_iterate(rx_sc, n_iters, m, replica)
+        else:  # "none"
+            one = receivers.standard_receive_sc(rx_sc, m)
+            bits_all = one.expand(n_iters + 1, *one.shape)
+
+        dist_err = bits_ops.count_bit_errors(bits_d, bits_all, axis=-1)
+        return FrameCounters(clean_err=clean_err, dist_err=dist_err.T.contiguous())
+
+    return frame_signature(_frame, ibo_as_arg, cfg.pa.ibo_db)
 
 
 def round_seed(key: int, idx: int) -> int:
@@ -123,21 +355,24 @@ def round_seed(key: int, idx: int) -> int:
 
 
 def make_round_fn(cfg: LinkConfig, n_iters: int, batch: int, *,
-                  flat: bool = True, device=None):
-    """Monte-Carlo round ``round_fn(key, idx, snr_db)``: ``batch`` frames
-    drawn from a generator seeded by :func:`round_seed` ``(key, idx)``,
-    counters summed over the batch. With ``flat=True`` it returns ONE int32
-    tensor ``[clean_err, dist_err[0..n_iters]]`` (the reference's
+                  incl_clean: bool = True, reroll: bool = True,
+                  ibo_as_arg: bool = False, flat: bool = True, device=None):
+    """Monte-Carlo round ``round_fn(key, idx, snr_db[, ibo_db])``: ``batch``
+    frames drawn from a generator seeded by :func:`round_seed` ``(key,
+    idx)``, counters summed over the batch. With ``flat=True`` it returns
+    ONE int32 tensor ``[clean_err, dist_err[0..n_iters]]`` (the reference's
     shared-array layout, ``reference/mp_model.py:132-134``), else summed
-    :class:`FrameCounters`. Runs on ``device`` (``cuda`` unless
-    ``device="cpu"``)."""
+    :class:`FrameCounters`. ``ibo_as_arg`` adds the IBO argument, a Python
+    float (see :func:`make_frame_fn`). Runs on ``device`` (``cuda`` unless
+    ``device="cpu"``); nothing in a round waits for the device."""
     dev = resolve_device(device)
-    frame_fn = make_frame_fn(cfg, n_iters, device=dev)
+    frame_fn = make_frame_fn(cfg, n_iters, incl_clean=incl_clean,
+                             reroll=reroll, ibo_as_arg=ibo_as_arg, device=dev)
 
-    def round_fn(key: int, idx: int, snr_db) -> torch.Tensor | FrameCounters:
+    def round_fn(key: int, idx: int, snr_db, *ibo_db) -> torch.Tensor | FrameCounters:
         gen = torch.Generator(device=dev)
         gen.manual_seed(round_seed(key, idx))
-        c = frame_fn(snr_db, batch=batch, generator=gen)
+        c = frame_fn(snr_db, *ibo_db, batch=batch, generator=gen)
         clean = c.clean_err.sum(0, dtype=torch.int32)
         dist = c.dist_err.sum(0, dtype=torch.int32)
         if flat:

@@ -6,9 +6,13 @@ dimension ``B`` replaces JAX's ``vmap``, so the per-frame scalars
 (saturation power, AGC noise scalers) are ``[B]`` tensors and the
 per-antenna gains ``[B, n_ant]``.
 
-* The Rayleigh fade, the MRT precoder and the per-antenna TX signals are
-  real/imag planes in the storage dtype (bfloat16 or float32); every
-  cross-antenna reduction accumulates in float32.
+* The channel (Rayleigh fade, or the LOS / two-path phase planes), the MRT
+  precoder and the per-antenna TX signals are real/imag planes in the
+  storage dtype (bfloat16 or float32); every cross-antenna reduction
+  accumulates in float32.
+* The LOS and two-path planes come from :func:`_factored_cos_sin`: two
+  small cos/sin tables per antenna and one angle-addition pass, instead of
+  a sin and a cos per antenna and subcarrier.
 * The distorted TX, and the MCNC replica on every pass, run
   ``extract_sc(FFT(PA(IFFT(map_sc(.)))))`` over all ``B x n_ant`` rows in one
   launch of the fused CUDA kernel (``kernels/fused_pa.py``); the CNC
@@ -19,9 +23,10 @@ randoms as a :class:`FrameDraws` -- drawn from a ``torch.Generator`` on the
 frame's device (:meth:`FrameDraws.draw`), or handed in, e.g. the JAX
 package's own draws (:meth:`FrameDraws.from_numpy`).
 
-Reference semantics: fade reroll per frame (``reference/mp_model.py:140-154``),
-AGC/noise scalers (``reference/mp_model.py:290-329``), constant-IBO PA
-recalibration (``reference/antenna_array.py:313-360``).
+Reference semantics: fade / RX-position reroll per frame
+(``reference/mp_model.py:140-154``), AGC/noise scalers
+(``reference/mp_model.py:290-329``), constant-IBO PA recalibration
+(``reference/antenna_array.py:313-360``).
 """
 
 from __future__ import annotations
@@ -30,16 +35,17 @@ import math
 
 import torch
 
-from mimo_ofdm_tpu_torch.kernels.fused_pa import check_shapes
 from mimo_ofdm_tpu_torch.models import channels, receivers, transmit
+from mimo_ofdm_tpu_torch.models.geometry import C_LIGHT
 from mimo_ofdm_tpu_torch.models.link import (FrameCounters, FrameDraws,
-                                              link_static)
+                                              bussgang_override, frame_signature,
+                                              link_static, rx_positions)
 from mimo_ofdm_tpu_torch.models.precoding import per_antenna_alpha
 from mimo_ofdm_tpu_torch.ops import bits as bits_ops
 from mimo_ofdm_tpu_torch.ops import noise as noise_ops
 from mimo_ofdm_tpu_torch.ops import ofdm, pa
 from mimo_ofdm_tpu_torch.ops.fused_chain import (fused_sc_ifft_pa_fft_planar_io,
-                                                 storage_dtype)
+                                                 kernel_eligible, storage_dtype)
 from mimo_ofdm_tpu_torch.utils.config import LinkConfig
 from mimo_ofdm_tpu_torch.utils.device import resolve_device
 
@@ -48,11 +54,8 @@ def planar_eligible(cfg: LinkConfig) -> bool:
     """True when the planar path covers this config (the JAX package's
     gate, with the TPU matmul-tiling check replaced by the kernel's own
     shape contract)."""
-    try:
-        check_shapes(cfg.modem.n_fft, cfg.modem.n_sub_carr, "sc")
-    except ValueError:
-        return False
-    return (cfg.modem.n_users == 1
+    return (kernel_eligible(cfg.modem.n_fft, cfg.modem.n_sub_carr, "sc")
+            and cfg.modem.n_users == 1
             and not cfg.csi_epsilon
             and cfg.csi_snr_db is None
             and cfg.precoding == "mrt"
@@ -61,45 +64,130 @@ def planar_eligible(cfg: LinkConfig) -> bool:
             and cfg.use_mxu_fft)
 
 
+def _factored_cos_sin(w: torch.Tensor, center_freq: float, df: float,
+                      n_sc: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``cos/sin(w[..., None] * freqs_sc)`` on the data-subcarrier grid,
+    ``[..., n_ant] -> [..., n_ant, n_sc]``, with O(n_ant (Q + R))
+    transcendentals instead of O(n_ant n_sc)
+    (``mimo_ofdm_tpu/models/link_planar.py:69-114``).
+
+    The grid is ``f_k = fc + df k`` for ``k`` in ``[-n_sc/2..-1, 1..n_sc/2]``.
+    The contiguous part ``k = R q + r - n_sc/2`` splits the phase as
+    ``A[a, q] + B[a, r]``, and the planes are angle-addition products of
+    two small tables. The straggler ``k = +n_sc/2`` is computed directly
+    and the DC column is dropped. Every phase is formed in float32 in the
+    JAX package's operation order: at the canonical ~2e4 rad one float32
+    ulp is ~2e-3 rad, so another order would move the planes."""
+    half = n_sc // 2
+    R = 64
+
+    def grid(lo, hi):
+        return torch.arange(lo, hi, dtype=torch.float32, device=w.device)
+
+    if n_sc % R or n_sc < 2 * R:
+        theta_neg = w[..., None] * (center_freq + df * grid(-half, 0))
+        theta_pos = w[..., None] * (center_freq + df * grid(1, half + 1))
+        theta = torch.cat([theta_neg, theta_pos], dim=-1)
+        return torch.cos(theta), torch.sin(theta)
+    q_grid = df * (R * grid(0, n_sc // R) - half)
+    th_a = w[..., None] * (center_freq + q_grid)              # [..., n_ant, Q]
+    th_b = (w * df)[..., None] * grid(0, R)                   # [..., n_ant, R]
+    th_x = w * (center_freq + df * half)                      # [..., n_ant]
+    ca, sa = torch.cos(th_a)[..., :, None], torch.sin(th_a)[..., :, None]
+    cb, sb = torch.cos(th_b)[..., None, :], torch.sin(th_b)[..., None, :]
+    cos_c = (ca * cb - sa * sb).reshape(*w.shape, n_sc)
+    sin_c = (sa * cb + ca * sb).reshape(*w.shape, n_sc)
+    # contiguous k order -> SC layout [k=-half..-1 | k=1..half-1 | k=half]
+    cos_sc = torch.cat([cos_c[..., :half], cos_c[..., half + 1:],
+                        torch.cos(th_x)[..., None]], dim=-1)
+    sin_sc = torch.cat([sin_c[..., :half], sin_c[..., half + 1:],
+                        torch.sin(th_x)[..., None]], dim=-1)
+    return cos_sc, sin_sc
+
+
 def _channel_planes_fn(cfg: LinkConfig, freqs_sc: torch.Tensor,
                        rx_base: torch.Tensor, tx_pos: torch.Tensor,
-                       st: torch.dtype):
-    """Planar channel generator ``fade_normals [B, 2, n_ant, n_sc] ->
-    (hr, hi)`` in ``st``. Rayleigh = IID CN(0,1) x free-space attenuation
-    at the base RX position (``reference/channel.py:234-251``); the
-    attenuation does not depend on the frame and is computed once."""
+                       reroll: bool, st: torch.dtype):
+    """Planar channel generator ``draws -> (hr, hi)``, ``[B, n_ant, n_sc]``
+    in ``st`` (``mimo_ofdm_tpu/models/link_planar.py:117-191``).
+
+    Rayleigh = IID CN(0,1) x free-space attenuation at the base RX position
+    (``reference/channel.py:234-251``); its attenuation does not depend on
+    the frame and is computed once. LOS = phase at the (rerolled) RX
+    position x attenuation (``reference/channel.py:35-72``); two-path adds
+    the ground reflection (``reference/channel.py:116-167``). Without the
+    reroll the geometric planes are the same every frame and are computed
+    once."""
     model = cfg.channel.model
-    if model in ("los", "two_path"):
-        raise NotImplementedError(
-            f"the planar {model!r} channel (_factored_cos_sin) is not ported "
-            "yet (ROADMAP queue 1: LOS and two-path planes)")
-    if model != "rayleigh":
+    skip_att = cfg.channel.skip_attenuation
+    inv_freqs = 1.0 / freqs_sc
+    fc, df = cfg.center_freq, cfg.carrier_spacing
+    n_sc = cfg.modem.n_sub_carr
+
+    if model == "rayleigh":
+        if skip_att:
+            scale = torch.full((), math.sqrt(0.5), dtype=torch.float32,
+                               device=freqs_sc.device)
+        else:
+            d = channels._distances(tx_pos, rx_base)
+            scale = channels._fs_attenuation(d, freqs_sc) * math.sqrt(0.5)
+        scale = scale.to(st)
+
+        def rayleigh_planes(draws: FrameDraws):
+            fade = draws.fade.to(device=freqs_sc.device, dtype=st)
+            return fade[:, 0] * scale, fade[:, 1] * scale
+
+        return rayleigh_planes
+    if model not in ("los", "two_path"):
         raise ValueError(f"planar path does not cover channel {model!r}")
-    if cfg.channel.skip_attenuation:
-        scale = torch.full((), math.sqrt(0.5), dtype=torch.float32,
-                           device=freqs_sc.device)
-    else:
-        d = channels._distances(tx_pos, rx_base)
-        scale = channels._fs_attenuation(d, freqs_sc) * math.sqrt(0.5)
-    scale = scale.to(st)
 
-    def planes(fade: torch.Tensor):
-        fade = fade.to(st)
-        return fade[:, 0] * scale, fade[:, 1] * scale
+    def path_planes(d):
+        """Factored-phase planes x free-space attenuation for one path at
+        distances ``d [..., n_ant]``. The attenuation ``c/(4 pi d f)``
+        splits as ``(c/(4 pi d)) (1/f)``, with the static ``1/f`` row."""
+        cos_sc, sin_sc = _factored_cos_sin((2.0 * math.pi / C_LIGHT) * d,
+                                           fc, df, n_sc)
+        if skip_att:
+            return cos_sc, sin_sc
+        att = ((C_LIGHT / (4.0 * math.pi)) / d[..., None]) * inv_freqs
+        return cos_sc * att, sin_sc * att
 
-    return planes
+    def geometric(rx_pos):
+        d_los = channels._distances(tx_pos, rx_pos)
+        hr, hi = path_planes(d_los)
+        if model == "two_path":
+            # the ground reflection, coefficient -1
+            sr, si = path_planes(channels._mirror_distances(tx_pos, rx_pos))
+            hr, hi = hr - sr, hi - si
+        return hr.to(st), hi.to(st)
+
+    fixed = []
+
+    def geometric_planes(draws: FrameDraws):
+        batch = draws.batch
+        if reroll:
+            return geometric(rx_positions(rx_base, draws.loc))
+        if not fixed:
+            fixed.extend(geometric(rx_base[None]))
+        return tuple(p.expand(batch, -1, -1) for p in fixed)
+
+    return geometric_planes
 
 
 def make_planar_frame_fn(cfg: LinkConfig, n_iters: int, *,
-                         incl_clean: bool = True, storage: str = "bfloat16",
+                         incl_clean: bool = True, reroll: bool = True,
+                         storage: str = "bfloat16", ibo_as_arg: bool = False,
                          device=None):
     """Planar twin of :func:`mimo_ofdm_tpu_torch.models.link.make_frame_fn`:
     ``frame_fn(snr_db, draws=None, *, batch=None, generator=None) ->
     FrameCounters`` over a batch of frames on ``device`` (``cuda`` unless
     ``device="cpu"``). Without ``draws`` the frame draws ``batch`` frames
     from ``generator``. ``storage`` is the plane dtype, ``"bfloat16"`` or
-    ``"float32"``. Each frame's Rayleigh fade is its own draw, so the
-    channel is rerolled every frame."""
+    ``"float32"``. ``reroll`` moves the RX of the geometric channels per
+    frame (the Rayleigh fade is always a fresh draw). ``ibo_as_arg=True``
+    gives ``frame_fn(snr_db, ibo_db, draws=None, ...)``: the IBO, a Python
+    float, is taken per call, and the saturation power, Bussgang gains, AGC
+    scalers and CNC replica follow it."""
     if not planar_eligible(cfg):
         raise ValueError(f"config is not planar-eligible: {cfg}")
     st = storage_dtype(storage)
@@ -110,31 +198,23 @@ def make_planar_frame_fn(cfg: LinkConfig, n_iters: int, *,
     avg_sym_pow = cfg.modem.avg_symbol_power
     avg_samp_pow = cfg.modem.avg_sample_power
     pa_model = cfg.pa.model
-    ibo_db = cfg.pa.ibo_db
-    if pa_model == "toi":
-        alpha_override = cfg.pa.alpha_estimate
-    elif pa_model == "none":
-        alpha_override = 1.0
-    else:
-        alpha_override = None
+    alpha_override = bussgang_override(cfg)
 
     tx_pos, freqs, rx_base = link_static(cfg, dev)
     freqs_sc = ofdm.extract_subcarriers(freqs, n_sc)
-    channel_planes = _channel_planes_fn(cfg, freqs_sc, rx_base, tx_pos, st)
-    if cfg.rx.algorithm == "cnc":
-        cnc_replica = receivers.make_cnc_replica(
-            m, n_fft, n_sc, ibo_db, pa_model, alpha=alpha_override,
-            rapp_p=cfg.pa.rapp_p_hardness, storage=cfg.mxu_fft_storage)
+    channel_planes = _channel_planes_fn(cfg, freqs_sc, rx_base, tx_pos,
+                                        reroll, st)
 
     def f32sum(x, dim):
         return x.sum(dim, dtype=torch.float32)
 
-    def frame_fn(snr_db, draws: FrameDraws | None = None, *,
-                 batch: int | None = None,
-                 generator: torch.Generator | None = None) -> FrameCounters:
+    def _frame(snr_db, ibo_db: float, draws: FrameDraws | None,
+               batch: int | None, generator: torch.Generator | None
+               ) -> FrameCounters:
+        ibo_db = float(ibo_db)
         if draws is None:
-            draws = FrameDraws.draw(cfg, batch, generator, st)
-        hr, hi = channel_planes(draws.fade.to(dev))     # [B, n_ant, n_sc] st
+            draws = FrameDraws.draw(cfg, batch, generator, st, reroll=reroll)
+        hr, hi = channel_planes(draws)                   # [B, n_ant, n_sc] st
 
         # MRT precoder V = conj(H) / sqrt(sum_ant |H|^2)
         # (reference/antenna_array.py:167-171), f32 norm accumulation
@@ -204,7 +284,11 @@ def make_planar_frame_fn(cfg: LinkConfig, n_iters: int, *,
         rx_sc = rx_d / akhv
 
         if cfg.rx.algorithm == "cnc":
-            bits_all, _ = receivers.cnc_iterate(rx_sc, n_iters, m, cnc_replica)
+            replica = receivers.make_cnc_replica(
+                m, n_fft, n_sc, ibo_db, pa_model, alpha=alpha_override,
+                rapp_p=cfg.pa.rapp_p_hardness, use_mxu_fft=True,
+                mxu_storage=cfg.mxu_fft_storage)
+            bits_all, _ = receivers.cnc_iterate(rx_sc, n_iters, m, replica)
         elif cfg.rx.algorithm == "mcnc":
             # MCNC replica = the same planar TX chain + AGC divide
             bits_all, _ = receivers.cnc_iterate(
@@ -216,4 +300,4 @@ def make_planar_frame_fn(cfg: LinkConfig, n_iters: int, *,
         dist_err = bits_ops.count_bit_errors(bits_d, bits_all, axis=-1)
         return FrameCounters(clean_err=clean_err, dist_err=dist_err.T.contiguous())
 
-    return frame_fn
+    return frame_signature(_frame, ibo_as_arg, cfg.pa.ibo_db)

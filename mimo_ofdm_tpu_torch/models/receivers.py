@@ -1,5 +1,5 @@
 """CNC clipping-noise-cancellation receivers
-(port of ``mimo_ofdm_tpu/models/receivers.py:50-135``).
+(port of ``mimo_ofdm_tpu/models/receivers.py:50-166``).
 
 One generic iteration loop parameterized by a *replica function*, the model
 of the TX chain whose output minus the detected symbols is the distortion
@@ -8,7 +8,8 @@ estimate:
 * CNC  (``reference/corrector.py:52-112``): replica = IFFT -> clip -> FFT /
   alpha, a single nominal PA (:func:`make_cnc_replica`).
 * MCNC (``reference/corrector.py:165-207``): replica = the full precoded
-  array TX + channel + AGC divide (built by ``models/link_planar.py``).
+  array TX + channel + AGC divide (:func:`make_mcnc_replica`; the planar
+  frame builds its own on planes).
 
 The loop runs a fixed ``n_iters + 1`` detection passes and stacks every
 pass's hard bits, as the JAX ``lax.scan`` does; here it is a Python loop.
@@ -20,8 +21,8 @@ from typing import Callable
 
 import torch
 
+from mimo_ofdm_tpu_torch.models import channels, transmit
 from mimo_ofdm_tpu_torch.ops import pa, qam
-from mimo_ofdm_tpu_torch.ops.fused_chain import fused_sc_ifft_pa_fft_planar
 
 
 def standard_receive_sc(rx_sc: torch.Tensor, constel_size: int) -> torch.Tensor:
@@ -49,13 +50,15 @@ def cnc_iterate(rx_sc: torch.Tensor, n_iters: int, constel_size: int,
 
 def make_cnc_replica(constel_size: int, n_fft: int, n_sc: int, ibo_db: float,
                      pa_model: str = "softlim", alpha=None,
-                     rapp_p: float = 1.1, storage: str = "float32"):
+                     rapp_p: float = 1.1, use_mxu_fft: bool = False,
+                     mxu_storage: str = "float32"):
     """Replica of a single nominal PA at the receiver
     (``reference/corrector.py:87-110``): the average sample power is
     ``avg_symbol_power / upsample_factor`` (``reference/corrector.py:34-35``)
     and the result is divided by the analytic Bussgang alpha
     (``reference/corrector.py:104-107``). For ``toi`` the IBO is the
-    intercept point. ``storage`` is the fused chain's plane dtype."""
+    intercept point. ``ibo_db`` is a Python float, so nothing here touches
+    the device."""
     avg_samp_pow = qam.avg_symbol_power(constel_size) / (n_fft / n_sc)
     if pa_model == "toi":
         coeff = pa.toi_to_cubic_coeff(ibo_db, avg_samp_pow)
@@ -67,9 +70,31 @@ def make_cnc_replica(constel_size: int, n_fft: int, n_sc: int, ibo_db: float,
         a = float(pa.bussgang_alpha(ibo_db)) if alpha is None else alpha
 
     def replica(det_sym: torch.Tensor) -> torch.Tensor:
-        est = fused_sc_ifft_pa_fft_planar(det_sym, n_fft, pa_model=pa_model,
-                                          sat=sat, cubic_coeff=coeff,
-                                          rapp_p=rapp_p, storage=storage)
+        est = transmit.ifft_pa_fft_sc(det_sym, n_fft, pa_model, sat, rapp_p,
+                                      coeff, use_mxu_fft=use_mxu_fft,
+                                      mxu_storage=mxu_storage)
         return est / a
+
+    return replica
+
+
+def make_mcnc_replica(h_sc: torch.Tensor, v: torch.Tensor,
+                      agc_corr_sc: torch.Tensor, *, constel_size: int,
+                      n_fft: int, n_sc: int, pa_model: str = "softlim",
+                      sat_power, rapp_p: float = 1.1, toi_coeff=0.0,
+                      use_mxu_fft: bool = False, mxu_storage: str = "float32"):
+    """Replica of the full TX array + channel + AGC
+    (``reference/corrector.py:198-205``): detected symbols ``[..., n_sc]``
+    are precoded, clipped per antenna, propagated through ``h_sc [...,
+    n_ant, n_sc]`` on the data bins and divided by the ``sum_k a_k H_k V_k``
+    AGC vector ``agc_corr_sc [..., n_sc]``. ``sat_power`` / ``toi_coeff``
+    are per row of ``[..., n_ant]``."""
+    def replica(det_sym: torch.Tensor) -> torch.Tensor:
+        per_ant_sc = transmit.precode_symbols(det_sym, v)
+        fd_dist_sc = transmit.ifft_pa_fft_sc(per_ant_sc, n_fft, pa_model,
+                                             sat_power, rapp_p, toi_coeff,
+                                             use_mxu_fft=use_mxu_fft,
+                                             mxu_storage=mxu_storage)
+        return channels.propagate(h_sc, fd_dist_sc) / agc_corr_sc
 
     return replica

@@ -1,11 +1,25 @@
-"""Transmit-side symbol mapping and precoding
-(port of ``mimo_ofdm_tpu/models/transmit.py:28-50``)."""
+"""Transmit side: symbol mapping, precoding and the distorted-TX core
+(port of ``mimo_ofdm_tpu/models/transmit.py:28-176``).
+
+    bits -> QAM symbols [..., n_sc] -> precode [..., n_ant, n_sc]
+         -> embed subcarriers -> ortho IFFT -> per-row PA -> ortho FFT
+
+With ``use_mxu_fft`` (the JAX package's name for "run the fused chain") and
+a transform the kernel takes, the IFFT -> PA -> FFT core is one launch of
+the fused CUDA kernel (``sc`` mode on the data bins, ``full`` mode on whole
+frames); otherwise it is the plain ``torch.fft`` chain, as the JAX package
+uses ``jnp.fft`` there.
+
+PA parameters (``sat_power``, ``toi_coeff``) are per row: a Python scalar,
+or a tensor that broadcasts against the signal's leading dims (one value
+per frame, or per frame and antenna).
+"""
 
 from __future__ import annotations
 
 import torch
 
-from mimo_ofdm_tpu_torch.ops import qam
+from mimo_ofdm_tpu_torch.ops import fused_chain, ofdm, pa, qam
 
 
 def modulate_users(bits: torch.Tensor, constel_size: int,
@@ -19,5 +33,80 @@ def precode_symbols(symbols: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Single-user frequency-domain precoding: ``symbols [..., n_sc]`` times
     ``v [..., n_ant, n_sc]`` -> ``[..., n_ant, n_sc]``
     (``reference/modulation.py:373``). The multi-user form waits for the
-    multi-user slice (ROADMAP queue 1, item 9)."""
+    multi-user slice (ROADMAP queue 1)."""
     return symbols[..., None, :] * v
+
+
+def _per_sample(v):
+    """A per-row PA parameter broadcast over the sample axis."""
+    return v[..., None] if isinstance(v, torch.Tensor) else v
+
+
+def make_pa_fn(pa_model: str, sat_power, rapp_p: float = 1.1, toi_coeff=0.0):
+    """Closure applying the per-row PA to time samples on the last axis."""
+    sat, coeff = _per_sample(sat_power), _per_sample(toi_coeff)
+
+    def pa_fn(td_sig: torch.Tensor) -> torch.Tensor:
+        return pa.apply_pa(td_sig, pa_model, sat, rapp_p, coeff)
+
+    return pa_fn
+
+
+def pa_transfer(td_sig: torch.Tensor, pa_model: str, sat_power,
+                rapp_p: float = 1.1, toi_coeff=0.0) -> torch.Tensor:
+    """Apply the per-row PA in the time domain."""
+    return make_pa_fn(pa_model, sat_power, rapp_p, toi_coeff)(td_sig)
+
+
+def ifft_pa_fft(fd_clean: torch.Tensor, pa_model: str, sat_power,
+                rapp_p: float = 1.1, toi_coeff=0.0, use_mxu_fft: bool = False,
+                mxu_storage: str = "float32") -> torch.Tensor:
+    """The distorted-TX core on whole ``[..., n_fft]`` frames: ortho IFFT ->
+    per-row PA -> ortho FFT; the kernel's ``full`` mode with
+    ``use_mxu_fft``."""
+    n_fft = fd_clean.shape[-1]
+    if use_mxu_fft and fused_chain.kernel_eligible(n_fft, n_fft, "full"):
+        return fused_chain.fused_ifft_pa_fft_planar(
+            fd_clean, pa_model=pa_model, sat=sat_power, cubic_coeff=toi_coeff,
+            rapp_p=rapp_p, storage=mxu_storage)
+    td = torch.fft.ifft(fd_clean, dim=-1, norm="ortho")
+    td_dist = pa_transfer(td, pa_model, sat_power, rapp_p, toi_coeff)
+    return torch.fft.fft(td_dist, dim=-1, norm="ortho")
+
+
+def ifft_pa_fft_sc(per_ant_sc: torch.Tensor, n_fft: int, pa_model: str,
+                   sat_power, rapp_p: float = 1.1, toi_coeff=0.0,
+                   use_mxu_fft: bool = False,
+                   mxu_storage: str = "float32") -> torch.Tensor:
+    """The distorted-TX core on the data bins:
+    ``extract_sc(FFT(PA(IFFT(map_sc(x)))))`` for ``[..., n_sc]``; the
+    kernel's ``sc`` mode with ``use_mxu_fft``, where the full-band frame is
+    never formed (``reference/antenna_array.py:110-140`` then the strip of
+    ``reference/corrector.py:66``)."""
+    n_sc = per_ant_sc.shape[-1]
+    if use_mxu_fft and fused_chain.kernel_eligible(n_fft, n_sc, "sc"):
+        return fused_chain.fused_sc_ifft_pa_fft_planar(
+            per_ant_sc, n_fft, pa_model=pa_model, sat=sat_power,
+            cubic_coeff=toi_coeff, rapp_p=rapp_p, storage=mxu_storage)
+    fd_clean = ofdm.map_subcarriers(per_ant_sc, n_fft)
+    fd_dist = ifft_pa_fft(fd_clean, pa_model, sat_power, rapp_p, toi_coeff,
+                          use_mxu_fft=use_mxu_fft, mxu_storage=mxu_storage)
+    return ofdm.extract_subcarriers(fd_dist, n_sc)
+
+
+def array_transmit_fd(bits: torch.Tensor, *, constel_size: int, n_fft: int,
+                      v: torch.Tensor, pa_model: str = "softlim",
+                      sat_power=1.0, rapp_p: float = 1.1, toi_coeff=0.0,
+                      skip_dist: bool = False, return_clean: bool = False,
+                      use_mxu_fft: bool = False, mxu_storage: str = "float32"):
+    """Array transmit to the frequency domain
+    (``reference/antenna_array.py:58-140``): ``[..., n_ant, n_fft]``
+    distorted frames, ``(distorted, clean)`` with ``return_clean``, or the
+    clean frames alone with ``skip_dist``."""
+    symbols = modulate_users(bits, constel_size)
+    fd_clean = ofdm.map_subcarriers(precode_symbols(symbols, v), n_fft)
+    if skip_dist:
+        return fd_clean
+    fd_dist = ifft_pa_fft(fd_clean, pa_model, sat_power, rapp_p, toi_coeff,
+                          use_mxu_fft=use_mxu_fft, mxu_storage=mxu_storage)
+    return (fd_dist, fd_clean) if return_clean else fd_dist

@@ -16,9 +16,19 @@ from __future__ import annotations
 
 import torch
 
-from mimo_ofdm_tpu_torch.kernels.fused_pa import fused_ifft_pa_fft
+from mimo_ofdm_tpu_torch.kernels.fused_pa import check_shapes, fused_ifft_pa_fft
 
 STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def kernel_eligible(n_fft: int, n_io: int, mode: str) -> bool:
+    """True when the kernel takes this transform (the counterpart of
+    ``mxu_fft.square_radix`` / ``sc_prune_eligible``)."""
+    try:
+        check_shapes(n_fft, n_io, mode)
+    except ValueError:
+        return False
+    return True
 
 
 def storage_dtype(storage: str) -> torch.dtype:

@@ -1,9 +1,11 @@
 """Where a round's device time goes: ``torch.profiler`` over a few
-Monte-Carlo rounds of the canonical frame on the card.
+Monte-Carlo rounds on the card: bench.py's Rayleigh frame, the repo's
+canonical configuration (LOS, RX rerolled per frame), its two-path
+variant, and the canonical LOS on the complex64 branch (f32 chain).
 
     python -m mimo_ofdm_tpu_torch.utils.profiling [--batch 128] [--rounds 3]
 
-Prints one JSON line per arm (CNC, MCNC) with the wall time per round, the
+Prints one JSON line per frame and arm (CNC, MCNC) with the wall time per round, the
 device-busy time per round (sum of kernel durations), the idle share, and
 the kernels that take the most device time, grouped by name. Needs a CUDA
 device.
@@ -82,12 +84,17 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
-    base, _ = config.canonical_miso_cnc()
-    base = base.replace(channel=config.ChannelConfig(model="rayleigh"))
-    for alg in ("cnc", "mcnc"):
-        cfg = base.replace(rx=dataclasses.replace(base.rx, algorithm=alg))
-        res = profile_round(cfg, 8, args.batch, args.rounds)
-        print(json.dumps({"card": card(), **res}), flush=True)
+    canonical, _ = config.canonical_miso_cnc()
+    frames = {"bench_rayleigh": canonical.replace(channel=config.ChannelConfig(model="rayleigh")),
+              "canonical_los": canonical,
+              "two_path": canonical.replace(channel=config.ChannelConfig(model="two_path")),
+              "complex64_los": canonical.replace(channel_storage="complex64",
+                                                 mxu_fft_storage="float32")}
+    for name, base in frames.items():
+        for alg in ("cnc", "mcnc"):
+            cfg = base.replace(rx=dataclasses.replace(base.rx, algorithm=alg))
+            res = profile_round(cfg, 8, args.batch, args.rounds)
+            print(json.dumps({"card": card(), "frame": name, **res}), flush=True)
 
 
 if __name__ == "__main__":

@@ -166,3 +166,33 @@ def test_frame_kernel_equals_plain(cuda):
             out[alg, plain] = np.concatenate([r.clean_err.cpu().numpy()[:, None],
                                               r.dist_err.cpu().numpy()], axis=1)
         np.testing.assert_array_equal(out[alg, False], out[alg, True])
+
+
+@pytest.mark.parametrize("storage", ["float32", "complex64"])
+@pytest.mark.parametrize("model", ["los", "two_path"])
+def test_geometric_frames_kernel_equal_plain(cuda, model, storage):
+    """The LOS / two-path planar frame and the complex64 branch, f32 chain
+    storage: the kernel and the plain version give the same counters, and
+    a frame launches the kernel once for the TX and once per replica pass."""
+    cfg = config.LinkConfig(
+        modem=config.ModemConfig(n_fft=1024, n_sub_carr=512),
+        array=config.ArrayConfig(n_elements=8),
+        channel=config.ChannelConfig(model=model),
+        channel_storage=storage, mxu_fft_storage="float32")
+    for alg in ("cnc", "mcnc"):
+        c = cfg.replace(rx=dataclasses.replace(cfg.rx, algorithm=alg))
+        frame = link.make_frame_fn(c, 2, device=cuda)
+        draws = link.FrameDraws.draw(c, 8, torch.Generator(device=cuda).manual_seed(5))
+        out = {}
+        for plain in (False, True):
+            before = KERNEL.launches
+            KERNEL.force_plain = plain
+            try:
+                r = frame(25.0, draws)
+            finally:
+                KERNEL.force_plain = False
+            assert KERNEL.launches - before == (0 if plain else 1 + 3)
+            out[plain] = np.concatenate([r.clean_err.cpu().numpy()[:, None],
+                                         r.dist_err.cpu().numpy()], axis=1)
+        np.testing.assert_array_equal(out[False], out[True])
+        assert out[False][:, 1].sum() > 0

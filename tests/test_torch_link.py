@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from mimo_ofdm_tpu.models import link as jax_link
 from mimo_ofdm_tpu.models import link_planar as jax_planar
 from mimo_ofdm_tpu.models.link import link_static as jax_link_static
 from mimo_ofdm_tpu.ops import bits as jax_bits
@@ -42,23 +43,33 @@ def _port_cfg(jcfg):
     return pt_config.config_from_dict(dataclasses.asdict(jcfg))
 
 
-def _jax_draws(jcfg, keys, storage):
-    """The randoms the JAX planar frame draws for each key, as numpy."""
+def _jax_draws(jcfg, keys, storage="float32", reroll=True):
+    """The randoms the JAX frame draws for each key, as FrameDraws: only
+    those the config uses, in float32 semantics (the suite's x64 mode
+    would draw the RX offsets in float64)."""
     st = jnp.bfloat16 if storage == "bfloat16" else jnp.float32
     n_ant, n_sc = jcfg.array.n_elements, jcfg.modem.n_sub_carr
     n_bits = jcfg.modem.n_bits_per_ofdm_sym
+    half = jcfg.rx.loc_var / 2.0
+    model = jcfg.channel.model
 
     def one(key):
-        k_chan, _, k_bits_c, k_bits_d, k_noise_c, k_noise_d = jax.random.split(key, 6)
-        _, k_fade = jax.random.split(k_chan)
-        fade = jax.random.normal(k_fade, (2, n_ant, n_sc), st).astype(jnp.float32)
-        return (fade,
+        k_chan, k_csi, k_bits_c, k_bits_d, k_noise_c, k_noise_d = jax.random.split(key, 6)
+        k_loc, k_fade = jax.random.split(k_chan)
+        return (jax.random.normal(k_fade, (2, n_ant, n_sc), st).astype(jnp.float32),
                 jax_bits.random_payload_bits(k_bits_c, n_bits),
                 jax_bits.random_payload_bits(k_bits_d, n_bits),
                 jax.random.normal(k_noise_c, (2, n_sc), jnp.float32),
-                jax.random.normal(k_noise_d, (2, n_sc), jnp.float32))
+                jax.random.normal(k_noise_d, (2, n_sc), jnp.float32),
+                jax.random.uniform(k_loc, (2,), minval=-half, maxval=half),
+                jax.random.normal(k_csi, (2, n_ant, n_sc), jnp.float32))
 
-    return [np.asarray(a) for a in jax.jit(jax.vmap(one))(keys)]
+    with jax.enable_x64(False):
+        fade, bc, bd, nc, nd, loc, csi = [np.asarray(a) for a in jax.jit(jax.vmap(one))(keys)]
+    return link.FrameDraws.from_numpy(
+        fade if model == "rayleigh" else None, bc, bd, nc, nd,
+        loc=loc if reroll and model in ("los", "two_path") else None,
+        csi=csi if jcfg.csi_epsilon or jcfg.csi_snr_db is not None else None)
 
 
 def _run_both(alg, storage, seed=5):
@@ -68,7 +79,7 @@ def _run_both(alg, storage, seed=5):
     f = jax.jit(jax.vmap(jax_planar.make_planar_frame_fn(jcfg, N_ITERS, storage=storage),
                          in_axes=(0, None, None)))
     jc = f(keys, np.float32(SNR_DB), tx_pos)
-    draws = link.FrameDraws.from_numpy(*_jax_draws(jcfg, keys, storage))
+    draws = _jax_draws(jcfg, keys, storage)
     frame = link.make_frame_fn(_port_cfg(jcfg), N_ITERS, device="cpu")
     pc = frame(np.float32(SNR_DB), draws)
     return ((np.asarray(jc.clean_err), np.asarray(jc.dist_err)),
@@ -102,7 +113,7 @@ def test_counters_bf16_within_mc_noise(alg):
 def test_none_receiver_and_no_clean_run():
     jcfg = _jax_cfg("none", "float32")
     keys = jax.random.split(jax.random.key(2), 4)
-    draws = link.FrameDraws.from_numpy(*_jax_draws(jcfg, keys, "float32"))
+    draws = _jax_draws(jcfg, keys, "float32")
     frame = link.make_frame_fn(_port_cfg(jcfg), N_ITERS, device="cpu",
                                incl_clean=False)
     c = frame(np.float32(SNR_DB), draws)
@@ -138,12 +149,28 @@ def test_config_round_trip_and_eligibility():
 
 
 def test_entry_points_dispatch_and_device():
+    """LOS, two-path, AWGN, complex64 storage, the none/phase precoders,
+    both CSI-error models and the circular/planar arrays build; what later
+    slices port raises NotImplementedError naming its ROADMAP item; an
+    entry point with no card and no device="cpu" raises."""
     pcfg = _port_cfg(_jax_cfg())
-    with pytest.raises(NotImplementedError, match="complex64"):
-        link.make_frame_fn(pcfg.replace(channel_storage="complex64"), 1, device="cpu")
-    los = pcfg.replace(channel=pt_config.ChannelConfig(model="los"))
-    with pytest.raises(NotImplementedError, match="_factored_cos_sin"):
-        link.make_frame_fn(los, 1, device="cpu")
+    geo = dict(n_elements=12, n_rows=3, n_cols=4)
+    for cfg in (pcfg.replace(channel_storage="complex64"),
+                pcfg.replace(channel=pt_config.ChannelConfig(model="los")),
+                pcfg.replace(channel=pt_config.ChannelConfig(model="two_path")),
+                pcfg.replace(channel=pt_config.ChannelConfig(model="awgn"), precoding="none"),
+                pcfg.replace(precoding="phase"), pcfg.replace(csi_epsilon=0.1),
+                pcfg.replace(csi_snr_db=15.0),
+                pcfg.replace(array=pt_config.ArrayConfig(geometry="circular", **geo)),
+                pcfg.replace(array=pt_config.ArrayConfig(geometry="planar", **geo))):
+        link.make_frame_fn(cfg, 1, device="cpu")
+    for cfg, item in ((pcfg.replace(channel=pt_config.ChannelConfig(model="random_paths")),
+                       "random_paths"),
+                      (pcfg.replace(modem=dataclasses.replace(pcfg.modem, n_users=2)),
+                       "multi-user"),
+                      (pcfg.replace(precoding="zf"), "multi-user")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1: .*{item}"):
+            link.make_frame_fn(cfg, 1, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             link.make_round_fn(pcfg, 1, 2)
@@ -160,3 +187,67 @@ def test_round_fn_flat_counters_deterministic():
     assert torch.equal(tup.dist_err, a[1:])
     n_bits = 4 * pcfg.modem.n_bits_per_ofdm_sym
     assert 0 < int(a[0]) < int(a[1]) < n_bits // 4
+
+
+# --- the complex64 branch of make_frame_fn, on JAX's own draws ------------
+
+COMPLEX_CASES = [
+    # (channel, precoding, n_ant, receiver, pa model, CSI error)
+    *[(chan, prec, n_ant, alg, "softlim", csi)
+      for chan, prec, n_ant, alg in (("awgn", "none", 1, "cnc"), ("los", "mrt", 8, "mcnc"),
+                                     ("two_path", "phase", 8, "cnc"),
+                                     ("rayleigh", "mrt", 8, "mcnc"))
+      for csi in ("perfect", "eps", "snr")],
+    ("los", "mrt", 8, "cnc", "rapp", "perfect"),
+    ("two_path", "mrt", 8, "mcnc", "toi", "eps"),
+    ("rayleigh", "phase", 8, "none", "none", "snr"),
+]
+CSI = {"perfect": {}, "eps": {"csi_epsilon": 0.1}, "snr": {"csi_snr_db": 15.0}}
+
+
+def _complex_cfg(chan, prec, n_ant, alg, pa_model, csi):
+    pa_cfg = jax_config.PaConfig(model=pa_model, ibo_db=20.0 if pa_model == "toi" else 0.0,
+                                 alpha_estimate=0.9 if pa_model == "toi" else 1.0)
+    return jax_config.LinkConfig(
+        modem=jax_config.ModemConfig(constel_size=64, n_fft=256, n_sub_carr=128),
+        array=jax_config.ArrayConfig(n_elements=n_ant),
+        channel=jax_config.ChannelConfig(model=chan), precoding=prec, pa=pa_cfg,
+        rx=jax_config.RxConfig(algorithm=alg), channel_storage="complex64",
+        mxu_fft_storage="float32", **CSI[csi])
+
+
+def _jax_complex(jcfg, keys, eager):
+    """JAX's complex64 frames in float32 semantics, compiled or op by op
+    (see tests/test_torch_channels.py::_jax_frames)."""
+    with jax.enable_x64(False):
+        tx_pos = jax_link_static(jcfg)[0]
+        run = jax.vmap(jax_link.make_frame_fn(jcfg, N_ITERS), in_axes=(0, None, None))
+        if eager:
+            with jax.disable_jit():
+                c = run(keys, np.float32(20.0), tx_pos)
+        else:
+            c = jax.jit(run)(keys, np.float32(20.0), tx_pos)
+        return np.asarray(c.clean_err), np.asarray(c.dist_err)
+
+
+@pytest.mark.parametrize("case", COMPLEX_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_complex_branch_counters_equal_jax(case):
+    """The complex64 branch at f32 chain storage on JAX's draws (fade, RX
+    offsets, CSI noise): per-frame counters EQUAL those of JAX's frame run
+    op by op, which runs the same operations in the same order. The
+    compiled JAX frame rounds the LOS phases differently (XLA folds their
+    constant factors, tests/test_torch_channels.py::_jax_frames) and moves
+    a few decisions, so against it the per-counter totals agree within the
+    5% rule of tests/test_mxu_fft.py:107-130."""
+    jcfg = _complex_cfg(*case)
+    keys = jax.random.split(jax.random.key(21), 6)
+    frame = link.make_frame_fn(_port_cfg(jcfg), N_ITERS, device="cpu")
+    pc = frame(np.float32(20.0), _jax_draws(jcfg, keys))
+    pcc, pdd = pc.clean_err.numpy(), pc.dist_err.numpy()
+    ec, ed = _jax_complex(jcfg, keys, eager=True)
+    np.testing.assert_array_equal(pcc, ec)
+    np.testing.assert_array_equal(pdd, ed)
+    jc, jd = _jax_complex(jcfg, keys, eager=False)
+    a = np.concatenate([[jc.sum()], jd.sum(0)]).astype(float)
+    b = np.concatenate([[pcc.sum()], pdd.sum(0)]).astype(float)
+    assert np.all(np.abs(a - b) <= 0.05 * np.maximum(a, 100)), (a, b)
