@@ -21,8 +21,8 @@ Phases, each printing one JSON line:
    checked for sanity.
 5. frame: f32 frames at full width with fixed draws through the kernel and
    through the plain version forced on CUDA tensors: the Rayleigh frame,
-   the canonical LOS planes and the complex64 branch; the counters must be
-   equal.
+   the canonical LOS planes, the complex64 branch, and the TDL and GSCM
+   channels; the counters must be equal.
 6. timing: CUDA-event times of the kernel, its plain version and the
    torch.fft chain at the main path's two shapes (TX launch, CNC replica)
    in both plane dtypes, beside the kernel's bound and its share of it.
@@ -38,6 +38,18 @@ Phases, each printing one JSON line:
 9. sweep: miso_ber_vs_ebn0 at full width through the Monte-Carlo driver,
    two Eb/N0 points of a few rounds each; its CSV (in a temporary
    directory) must have the expected name and layout.
+10. channels: one full-width round per receiver (CNC, MCNC) of
+   canonical_miso_cnc() with the channel switched to Rician (K 9 dB),
+   random paths, TR 38.901 TDL (uma_los, 20 subpaths) and the GSCM
+   (uma_los, uma_nlos), with phase 4's checks.
+11. multiuser: multiuser_ber's configuration (2 users at +-30 deg and 100 /
+   316.3 m, LOS, 64 antennas, the canonical frame): one full-width round
+   each of MRT+CNC, ZF+CNC, MRT+CNC-MU, MRT+MCNC-MU and separate-carrier
+   CNC, with 10 launches a round, per-user sanity, and the CUDA syncs of
+   the timed rounds counted under torch.cuda.set_sync_debug_mode("warn");
+   f32 frames equal through the kernel and the plain version; then a
+   two-point multiuser_ber sweep whose CSV name and layout are checked,
+   with its ratio to the committed full-width curve printed.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -184,6 +196,13 @@ def kernel_checks(fp, dev) -> dict:
                        n_fft=4096, mode="sc"))
     cases.append(check("sc_softlim_bf16_tx_shape", ar.bfloat16(), ai.bfloat16(), tx_sat,
                        tol=1e-2, pa_model="softlim", n_fft=4096, mode="sc"))
+    # an MCNC-MU replica pass: B x n_usr x n_ant = 128 x 2 x 64 rows
+    ar, ai = planes(2 * 64 * 128, 2048)
+    mu_sat = torch.rand(2 * 64 * 128, generator=g, device=dev) + 0.2
+    cases.append(check("sc_softlim_f32_mcnc_mu_shape", ar, ai, mu_sat, pa_model="softlim",
+                       n_fft=4096, mode="sc"))
+    cases.append(check("sc_softlim_bf16_mcnc_mu_shape", ar.bfloat16(), ai.bfloat16(), mu_sat,
+                       tol=1e-2, pa_model="softlim", n_fft=4096, mode="sc"))
     before = kern.launches
     zr, _ = kern(ar[:0], ai[:0], 1.0, pa_model="softlim", n_fft=4096, mode="sc")
     zero_ok = tuple(zr.shape) == (0, 2048) and kern.launches == before
@@ -292,8 +311,8 @@ def los_paths(fp, config, link, dev, batch: int, rounds: int, snr: float,
 def frame_kernel_vs_plain(fp, config, link, dev, snr_los: float, batch: int = 2) -> dict:
     """Phase 5: f32 frames at full width with fixed draws, through the
     kernel and through the plain version forced on CUDA tensors: bench.py's
-    Rayleigh frame (SNR 15 dB), the canonical LOS planes and the complex64
-    branch on LOS (Eb/N0 15 dB)."""
+    Rayleigh frame (SNR 15 dB), the canonical LOS planes, the complex64
+    branch on LOS, and the TDL and GSCM channels (Eb/N0 15 dB)."""
     kern = fp.fused_ifft_pa_fft
     frames = {}
     for alg in ("cnc", "mcnc"):
@@ -302,6 +321,10 @@ def frame_kernel_vs_plain(fp, config, link, dev, snr_los: float, batch: int = 2)
                                               mxu_fft_storage="float32"), snr_los)
         frames[f"complex_los_{alg}"] = (canonical_cfg(config, alg, channel_storage="complex64",
                                                       mxu_fft_storage="float32"), snr_los)
+        for model in ("tdl_3gpp", "gscm"):
+            frames[f"{model}_{alg}"] = (canonical_cfg(
+                config, alg, channel=config.ChannelConfig(model=model),
+                mxu_fft_storage="float32"), snr_los)
     res = {}
     for name, (cfg, snr) in frames.items():
         frame = link.make_frame_fn(cfg, N_ITERS, device=dev)
@@ -378,6 +401,202 @@ def sweep(fp, config, results, ber_sweeps, dev, batch: int, card: str = "") -> d
     return line
 
 
+STOCHASTIC_CHANNELS = {
+    "rician": dict(model="rician", rician_k_db=9.0),
+    "random_paths": dict(model="random_paths"),
+    "tdl_3gpp": dict(model="tdl_3gpp", tdl_profile="uma_los", tdl_subpaths=20),
+    "gscm_uma_los": dict(model="gscm", gscm_scenario="uma_los"),
+    "gscm_uma_nlos": dict(model="gscm", gscm_scenario="uma_nlos"),
+}
+
+
+def channel_paths(fp, config, link, dev, batch: int, snr: float, card: str = "") -> dict:
+    """Phase 10: one full-width round per receiver of the canonical config
+    on each stochastic channel, through drive_path."""
+    out = {}
+    for name, fields in STOCHASTIC_CHANNELS.items():
+        for alg in ("cnc", "mcnc"):
+            cfg = canonical_cfg(config, alg, channel=config.ChannelConfig(**fields))
+            out[f"{name}_{alg}"] = drive_path(fp, link, "channels", cfg, dev, batch, 1, snr,
+                                              warmup=1, card=card)
+    return out
+
+
+MU_PATHS = {                    # (precoding, receiver, separate carriers)
+    "mrt_cnc": ("mrt", "cnc", False),
+    "zf_cnc": ("zf", "cnc", False),
+    "mrt_cnc_mu": ("mrt", "cnc_mu", False),
+    "mrt_mcnc_mu": ("mrt", "mcnc_mu", False),
+    "sep_cnc": ("mrt", "cnc", True),
+}
+
+
+def mu_cfg(config, prec: str, alg: str, storage: str = "bfloat16"):
+    """multiuser_ber's configuration (experiments/ber_sweeps.py): the
+    canonical frame with 2 users on LOS."""
+    cfg, _ = config.canonical_miso_cnc()
+    return cfg.replace(modem=dataclasses.replace(cfg.modem, n_users=2), precoding=prec,
+                       rx=dataclasses.replace(cfg.rx, algorithm=alg),
+                       mxu_fft_storage=storage)
+
+
+def drive_mu_path(fp, link_mu, name: str, cfg, sep: bool, dev, batch: int, rounds: int,
+                  snr: float, card: str = "") -> dict:
+    """``rounds`` timed multi-user rounds after one warm-up, under
+    torch.cuda.set_sync_debug_mode("warn") with every warning recorded, the
+    launch count zeroed just before and read just after. Fails unless there
+    are 10 launches a round and every user's counters are sane: BER in [0,
+    0.5), clean below iteration 0, and for MCNC-MU iteration 8 no worse
+    than iteration 0."""
+    import warnings
+
+    kern = fp.fused_ifft_pa_fft
+    round_fn = link_mu.make_mu_round_fn(cfg, N_ITERS, batch, sep_carriers=sep, device=dev)
+    round_fn(0, 10_000, snr)
+    torch.cuda.synchronize()
+    kern.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            total = round_fn(0, 0, snr).to(torch.int64)
+            for i in range(1, rounds):
+                total += round_fn(0, i, snr)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    # every synchronizing call warns; setting the mode itself warns that
+    # the mode is a prototype, which is no sync
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message).lower()
+             and "prototype feature" not in str(w.message)]
+    launches = kern.launches
+    counts = total.cpu().tolist()
+    n_usr = len(counts)
+    n_bits = rounds * batch * cfg.modem.n_bits_per_ofdm_sym // (n_usr if sep else 1)
+    ber = [[c / n_bits for c in row] for row in counts]
+    expected = rounds * (1 + N_ITERS + 1)
+    line = {"path": name, "precoding": cfg.precoding, "alg": cfg.rx.algorithm,
+            "sep_carriers": sep, "batch": batch, "rounds": rounds, "snr_db": snr,
+            "counters": counts, "ber": ber, "launches": launches,
+            "expected_launches": expected, "launches_per_round": launches / rounds,
+            "syncs": len(syncs), "sync_messages": sorted(set(syncs))[:5],
+            "seconds": dt, "frames_per_s": rounds * batch / dt, "card": card}
+    print(json.dumps({"phase": "multiuser", **line}), flush=True)
+    if launches != expected:
+        raise AssertionError(f"multiuser {name}: {launches} launches, expected {expected}")
+    for u, b in enumerate(ber):
+        if not all(0 <= x < 0.5 for x in b) or not b[0] < b[1]:
+            raise AssertionError(f"multiuser {name}: insane counters of user {u}: {counts}")
+        if cfg.rx.algorithm == "mcnc_mu" and not b[-1] <= b[1]:
+            raise AssertionError(f"multiuser {name}: user {u} iteration 8 worse than 0")
+    return line
+
+
+def mu_kernel_vs_plain(fp, config, link_mu, dev, snr: float, batch: int = 2) -> dict:
+    """f32 multi-user frames with fixed draws through the kernel and through
+    the plain version forced on CUDA tensors: the counters must be equal."""
+    kern = fp.fused_ifft_pa_fft
+    pos = link_mu.default_user_positions()
+    res = {}
+    for name, (prec, alg, sep) in MU_PATHS.items():
+        cfg = mu_cfg(config, prec, alg, "float32")
+        builder = link_mu.make_mu_sep_frame_fn if sep else link_mu.make_mu_frame_fn
+        frame = builder(cfg, N_ITERS, pos, device=dev)
+        draws = link_mu.MuFrameDraws.draw(cfg, 2, batch,
+                                          torch.Generator(device=dev).manual_seed(9),
+                                          sep_carriers=sep)
+        got = {}
+        for plain in (False, True):
+            kern.force_plain = plain
+            try:
+                c = frame(snr, draws)
+            finally:
+                kern.force_plain = False
+            got[plain] = [c.clean_err.cpu().tolist(), c.dist_err.cpu().tolist()]
+        line = {"frame": f"mu_{name}", "batch": batch, "snr_db": snr, "kernel": got[False],
+                "plain": got[True], "equal": got[False] == got[True]}
+        print(json.dumps({"phase": "frame", **line}), flush=True)
+        if not line["equal"]:
+            raise AssertionError(f"mu_{name}: kernel and plain frames disagree: {line}")
+        res[name] = line
+    return res
+
+
+MU_REFERENCE_CSV = ("ber_vs_ebn0_mu_mr_cnc_los_nant64_ibo0_ebn0_min5_max20_step1.00"
+                    "_niter1_2_3_4_5_6_7_8_angles-30_30_distances100_316.3")
+
+
+def mu_sweep(fp, results, ber_sweeps, dev, batch: int, card: str = "", n_ant: int = 64,
+             small: bool = False) -> dict:
+    """A two-point multiuser_ber sweep (MRT, CNC, Eb/N0 10 and 15 dB, a
+    bit budget of 3 rounds a point) into a temporary directory. Its CSV must
+    have mu_ber_filename's name and the layout Eb/N0, then per user the
+    clean row and it0..it8. Prints, and does not check, the ratio of its
+    BERs to the committed full-width curve at those points. ``n_ant`` and
+    ``small`` (multiuser_ber's n_fft 256 cut) exist for rehearsals on the
+    CPU."""
+    kern = fp.fused_ifft_pa_fft
+    n_bits_round = batch * (128 if small else 2048) * 6
+    ebn0 = (10.0, 15.0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mu_csv_")
+    old = os.environ.get("MIMO_OFDM_TPU_TORCH_RESULTS")
+    os.environ["MIMO_OFDM_TPU_TORCH_RESULTS"] = tmp
+    try:
+        torch.cuda.synchronize()
+        kern.launches = 0
+        t0 = time.perf_counter()
+        x, ber = ber_sweeps.multiuser_ber(
+            ebn0_min=ebn0[0], ebn0_max=ebn0[1], ebn0_step=ebn0[1] - ebn0[0],
+            n_err_min=10 ** 9, bits_sent_max=3 * n_bits_round, batch=batch, n_ant=n_ant,
+            small=small, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = kern.launches
+        name = results.mu_ber_filename("mr", "los", n_ant, 0.0, x, list(range(1, N_ITERS + 1)),
+                                       (-30.0, 30.0), (100.0, 316.3))
+        files = sorted(os.listdir(tmp))
+        rows = (results.read_from_csv(name, tmp) if files == [name + ".csv"] else None)
+    finally:
+        if old is None:
+            os.environ.pop("MIMO_OFDM_TPU_TORCH_RESULTS")
+        else:
+            os.environ["MIMO_OFDM_TPU_TORCH_RESULTS"] = old
+        shutil.rmtree(tmp, ignore_errors=True)
+    ref = np.asarray(results.read_from_csv(MU_REFERENCE_CSV, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "figs", "csv_results")), float)
+    cols = [int(np.argmin(np.abs(ref[0] - e))) for e in ebn0]
+    ratio = (ber.reshape(-1, len(ebn0)) / ref[1:, cols]).tolist()
+    line = {"points": list(ebn0), "launches": launches, "seconds": dt, "csv": files,
+            "expected_csv": name + ".csv", "ber": ber.tolist(),
+            "committed_ber": ref[1:, cols].tolist(), "ratio_to_committed": ratio, "card": card}
+    print(json.dumps({"phase": "multiuser_sweep", **line}), flush=True)
+    if rows is None:
+        raise AssertionError(f"multiuser sweep: expected one CSV {name}.csv, found {files}")
+    shape = [len(r) for r in rows]
+    if shape != [len(ebn0)] * (1 + 2 * (N_ITERS + 2)) or list(rows[0]) != list(ebn0):
+        raise AssertionError(f"multiuser sweep: CSV layout {shape}, expected Eb/N0 then "
+                             f"{2 * (N_ITERS + 2)} rows of {len(ebn0)}")
+    if launches != 2 * 3 * (N_ITERS + 2) or not np.all((0 <= ber) & (ber < 0.5)):
+        raise AssertionError(f"multiuser sweep: {launches} launches, BER {ber.tolist()}")
+    return line
+
+
+def multiuser(fp, config, link_mu, results, ber_sweeps, dev, batch: int, snr: float,
+              card: str = "") -> dict:
+    """Phase 11: the multi-user paths, their f32 kernel-vs-plain frames and
+    the two-point multiuser_ber sweep."""
+    out = {}
+    for name, (prec, alg, sep) in MU_PATHS.items():
+        out[f"mu_{name}"] = drive_mu_path(fp, link_mu, name, mu_cfg(config, prec, alg), sep,
+                                          dev, batch, 2, snr, card)
+    mu_kernel_vs_plain(fp, config, link_mu, dev, snr)
+    out["mu_sweep"] = mu_sweep(fp, results, ber_sweeps, dev, batch, card)
+    return out
+
+
 def timing(fp, ofdm, dev, batch: int, card: str = "", n_fft: int = 4096,
            n_sc: int = 2048) -> dict:
     """Phase 6: kernel, plain and torch.fft chain at the main path's shapes."""
@@ -435,7 +654,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mimo_ofdm_tpu_torch.experiments import ber_sweeps
     from mimo_ofdm_tpu_torch.kernels import fused_pa as fp
-    from mimo_ofdm_tpu_torch.models import link
+    from mimo_ofdm_tpu_torch.models import link, link_mu
     from mimo_ofdm_tpu_torch.ops import metrics, ofdm
     from mimo_ofdm_tpu_torch.utils import config, results
 
@@ -465,6 +684,9 @@ def main() -> int:
     times = timing(fp, ofdm, dev, args.batch, smi)
     paths.update(los_paths(fp, config, link, dev, args.batch, args.los_rounds, snr_los, smi))
     paths["sweep"] = sweep(fp, config, results, ber_sweeps, dev, args.batch, smi)
+    paths.update(channel_paths(fp, config, link, dev, args.batch, snr_los, smi))
+    paths.update(multiuser(fp, config, link_mu, results, ber_sweeps, dev, args.batch,
+                           snr_los, smi))
 
     tx = times["tx"]
     launches = sum(p["launches"] for p in paths.values())

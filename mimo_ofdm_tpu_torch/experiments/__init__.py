@@ -6,7 +6,8 @@ configs, and the CLI runs them by name:
 
 Only the ported experiments are registered: the BER sweeps of
 ``experiments/ber_sweeps.py`` (vs Eb/N0, IBO and antenna count, the
-fixed-BER grid, and the AWGN, CSI-error and TOI variants).
+fixed-BER grid, the AWGN, CSI-error and TOI variants, and the multi-user
+sweep ``multiuser_ber``).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """BER sweep experiments (port of ``mimo_ofdm_tpu/experiments/ber_sweeps.py``):
 vs Eb/N0, vs IBO, vs antenna count, the fixed-BER required-Eb/N0 grid,
-and the AWGN, CSI-error and TOI variants.
+the AWGN, CSI-error and TOI variants, and the multi-user sweep.
 
 Same arguments, defaults and CSV files as the JAX package's, plus
 ``device`` (``cuda`` unless ``"cpu"``). A JAX key ``fold_in(key(seed), i)``
@@ -14,6 +14,7 @@ import torch
 
 from mimo_ofdm_tpu_torch.experiments import register
 from mimo_ofdm_tpu_torch.models.link import make_round_fn, round_seed
+from mimo_ofdm_tpu_torch.models.link_mu import default_user_positions, make_mu_round_fn
 from mimo_ofdm_tpu_torch.ops.metrics import ebn0_to_snr
 from mimo_ofdm_tpu_torch.parallel.montecarlo import (SweepResult, run_ber_sweep,
                                                      run_point,
@@ -419,3 +420,65 @@ def req_ebn0_vs_ibo(channel="two_path", algorithm="cnc", n_ant=64,
             data.extend(ber_grid[j, i, :] for i in range(len(ebn0_arr)))
         results.save_to_csv(data, fname)
     return ibo_arr, ebn0_arr, ber_grid, req
+
+
+@register("multiuser_ber")
+def multiuser_ber(precoding="mrt", algorithm="cnc", channel="los", n_ant=64,
+                  ibo_db=0.0, user_angles=(-30.0, 30.0),
+                  user_distances=(100.0, 316.3), n_iters=8, ebn0_min=5.0,
+                  ebn0_max=20.0, ebn0_step=1.0, n_err_min=1_000_000,
+                  bits_sent_max=10_000_000, batch=16, seed=0, save_csv=True,
+                  verbose=True, small=False, sep_carriers=False, device=None):
+    """Per-user BER vs Eb/N0 for a user geometry and channel
+    (``reference/main_multiuser/main_multiuser_cnc_ber_vs_ebn0.py``).
+    Defaults: the canonical 2-user geometry (+-30 deg at 100 / 316.3 m).
+    ``algorithm``: cnc | cnc_mu (CNCWI) | mcnc_mu (MCNCWI). Each user stops
+    counting when it has ``n_err_min`` errors or ``bits_sent_max`` bits; a
+    round's counters reach the host in one fetch. Returns ``(ebn0, ber
+    [n_usr, n_iters + 2, n_points])``."""
+    n_usr = len(user_angles)
+    modem = ModemConfig(constel_size=64, n_fft=256 if small else 4096,
+                        n_sub_carr=128 if small else 2048,
+                        cp_len=16 if small else 128, n_users=n_usr)
+    cfg = LinkConfig(modem=modem, array=ArrayConfig(n_elements=n_ant),
+                     channel=ChannelConfig(model=channel), precoding=precoding,
+                     pa=PaConfig(model="softlim", ibo_db=ibo_db),
+                     rx=RxConfig(algorithm=algorithm))
+    user_positions = default_user_positions(tuple(user_angles), tuple(user_distances))
+    ebn0 = np.arange(ebn0_min, ebn0_max + ebn0_step / 2, ebn0_step)
+    snrs = ebn0_to_snr(ebn0, modem.n_sub_carr, modem.n_sub_carr, modem.constel_size)
+    round_fn = make_mu_round_fn(cfg, n_iters, batch, user_positions,
+                                sep_carriers=sep_carriers, device=device)
+    n_bits_frame = modem.n_bits_per_ofdm_sym
+    ber = np.zeros((n_usr, n_iters + 2, len(ebn0)))
+    for i, snr in enumerate(snrs):
+        n_err = np.zeros((n_usr, n_iters + 2), np.int64)
+        n_bits = np.zeros((n_usr, n_iters + 2), np.int64)
+        rounds = 0
+        key = round_seed(seed, i)
+        while True:
+            active = (n_err < n_err_min) & (n_bits < bits_sent_max)
+            if not active.any():
+                break
+            errs = round_fn(key, rounds, float(snr)).cpu().numpy()
+            n_err += np.where(active, errs, 0)
+            n_bits += np.where(active, batch * n_bits_frame, 0)
+            rounds += 1
+        ber[:, :, i] = n_err / np.maximum(n_bits, 1)
+        if verbose:
+            print(f"Eb/N0={ebn0[i]:5.1f}  usr0 BER="
+                  f"{np.array2string(ber[0, :, i], precision=3)}")
+    if save_csv:
+        # the reference's layout: row 0 = Eb/N0, then per user the clean
+        # row and one row per CNC iteration count 0..n_iters
+        # (reference/main_multiuser/main_multiuser_cnc_ber_vs_ebn0.py:665-672)
+        prec_ref = {"mrt": "mr"}.get(precoding, precoding)
+        fname = results.mu_ber_filename(
+            prec_ref, channel, n_ant, ibo_db, ebn0, list(range(1, n_iters + 1)),
+            user_angles, user_distances,
+            rx_name="cnc" if algorithm in ("cnc", "cnc_mu", "mcnc_mu") else algorithm)
+        data = [ebn0]
+        for u in range(n_usr):
+            data.extend(np.asarray(r) for r in ber[u])
+        results.save_to_csv(data, fname)
+    return ebn0, ber

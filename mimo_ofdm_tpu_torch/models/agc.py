@@ -30,14 +30,29 @@ class AgcStateSc(NamedTuple):
 
 
 def compute_agc_sc(h_sc: torch.Tensor, v: torch.Tensor, ibo_db: float,
-                   n_ant: int, alpha_override: float | None = None) -> AgcStateSc:
+                   n_ant: int, usr_idx: int | slice | None = None,
+                   alpha_override: float | None = None) -> AgcStateSc:
     """AGC state from the channel ``h_sc`` and precoder ``v``, both
     ``[..., n_ant, n_sc]`` (``reference/mp_model.py:290-329``).
     ``alpha_override`` replaces the per-antenna Bussgang closed form with a
-    constant, for PA models without one (``reference/corrector.py:146-147``)."""
+    constant, for PA models without one (``reference/corrector.py:146-147``).
+
+    With ``usr_idx``, ``v`` is the multi-user precoder ``[..., n_ant,
+    n_usr, n_sc]`` and ``h_sc`` the served user's channel: ``H o V`` takes
+    that user's slice while the per-antenna power, hence the IBO and
+    ``a_k``, sums over all users (``reference/corrector.py:379-384``). The
+    user axis is indexed in front, ``v.movedim(-2, 0)[usr_idx]``, so
+    ``usr_idx=slice(None)`` with users-first channels ``[n_usr, ...,
+    n_ant, n_sc]`` gives every user's state at once, with the user axis
+    leading."""
     n_sc = h_sc.shape[-1]
-    vk_pow_vec = precoding_power_per_antenna(v)
-    hk_vk = h_sc * v
+    if usr_idx is None:
+        vk_pow_vec = precoding_power_per_antenna(v)
+        v_usr = v
+    else:
+        vk_pow_vec = precoding_power_per_antenna(v, multi_user=True)
+        v_usr = v.movedim(-2, 0)[usr_idx]
+    hk_vk = h_sc * v_usr
     hk_vk_avg = hk_vk.sum(-2)
     if alpha_override is None:
         ak_vect = per_antenna_alpha(ibo_db, vk_pow_vec, n_sc, n_ant)

@@ -11,32 +11,36 @@ summed into one int32 vector ``[clean, it0..itN]``.
 Two branches, as in the JAX package: the planar path
 (``models/link_planar.py``) for single-user MRT on the LOS, two-path and
 Rayleigh channels with perfect CSI, and the complex64 branch here for
-everything else the port covers (the AWGN channel, the ``none`` and
-``phase`` precoders, both CSI-error models, ``channel_storage="complex64"``,
-transforms the kernel does not take). Multi-user links and the
-``rician``, ``random_paths``, ``tdl_3gpp`` and ``gscm`` channels raise
-``NotImplementedError``.
+every other single-user config (the AWGN, Rician, random-paths, TR 38.901
+TDL and GSCM channels, the ``none`` and ``phase`` precoders, both CSI-error
+models, ``channel_storage="complex64"``, transforms the kernel does not
+take). :func:`make_channel_fn` is shared with the multi-user link
+(``models/link_mu.py``), which takes the multi-user configs.
 """
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from mimo_ofdm_tpu_torch.models import agc as agc_mod
-from mimo_ofdm_tpu_torch.models import (channels, geometry, precoding,
+from mimo_ofdm_tpu_torch.models import (channels, geometry, gscm, precoding,
                                         receivers, transmit)
+from mimo_ofdm_tpu_torch.models.channels import _f32
 from mimo_ofdm_tpu_torch.ops import bits as bits_ops
 from mimo_ofdm_tpu_torch.ops import noise as noise_ops
 from mimo_ofdm_tpu_torch.ops import ofdm, pa
 from mimo_ofdm_tpu_torch.utils.config import LinkConfig
 from mimo_ofdm_tpu_torch.utils.device import resolve_device
 
-GEOMETRIC_CHANNELS = ("los", "two_path")
-PORTED_CHANNELS = ("awgn", "los", "two_path", "rayleigh")
+# the channels whose RX position is moved per frame when rerolled
+# (mimo_ofdm_tpu/models/link.py:78-119); random_paths ignores the RX and
+# rayleigh keeps the base position
+RX_REROLL_CHANNELS = ("los", "two_path", "rician", "tdl_3gpp", "gscm")
+CHANNEL_MODELS = ("awgn", "los", "two_path", "rayleigh", "rician",
+                  "random_paths", "tdl_3gpp", "gscm")
 
 
 class FrameCounters(NamedTuple):
@@ -55,9 +59,12 @@ class FrameDraws(NamedTuple):
       distorted runs;
     * ``noise_c`` / ``noise_d``: ``[B, 2, n_sc]`` unit normals (real, imag);
     * ``loc``: ``[B, 2]`` RX offsets in x and y, uniform in
-      ``+-loc_var/2``, when the geometric channels are rerolled, else None;
+      ``+-loc_var/2``, when the channel's RX is rerolled
+      (:data:`RX_REROLL_CHANNELS`), else None;
     * ``csi``: ``[B, 2, n_ant, n_sc]`` unit normals of the CSI error, when
-      the config has one, else None.
+      the config has one, else None;
+    * ``chan``: the stochastic channel's own draws (:func:`draw_channel`),
+      else None.
     """
     fade: torch.Tensor | None
     bits_c: torch.Tensor
@@ -66,6 +73,7 @@ class FrameDraws(NamedTuple):
     noise_d: torch.Tensor
     loc: torch.Tensor | None = None
     csi: torch.Tensor | None = None
+    chan: object = None
 
     @property
     def batch(self) -> int:
@@ -73,17 +81,14 @@ class FrameDraws(NamedTuple):
 
     @staticmethod
     def from_numpy(fade, bits_c, bits_d, noise_c, noise_d, loc=None, csi=None,
-                   device="cpu") -> "FrameDraws":
-        """Tensors on ``device`` from numpy arrays (or None): normals and
-        offsets as float32, bits as int8."""
-        def f32(a):
-            return (None if a is None
-                    else torch.as_tensor(np.array(a, np.float32), device=device))
-
-        def i8(a):
-            return torch.as_tensor(np.array(a, np.int8), device=device)
-        return FrameDraws(f32(fade), i8(bits_c), i8(bits_d), f32(noise_c),
-                          f32(noise_d), f32(loc), f32(csi))
+                   chan=None, device="cpu") -> "FrameDraws":
+        """Tensors on ``device`` from numpy arrays (or None): normals,
+        uniforms and offsets as float32, bits as int8. ``chan`` is a
+        NamedTuple of numpy arrays (or None), converted field by field."""
+        return FrameDraws(_f32(fade, device), _i8(bits_c, device), _i8(bits_d, device),
+                          _f32(noise_c, device), _f32(noise_d, device),
+                          _f32(loc, device), _f32(csi, device),
+                          chan_from_numpy(chan, device))
 
     @staticmethod
     def draw(cfg: LinkConfig, batch: int, generator: torch.Generator,
@@ -104,13 +109,56 @@ class FrameDraws(NamedTuple):
         bits_c = bits_ops.random_payload_bits(generator, (batch, n_bits))
         bits_d = bits_ops.random_payload_bits(generator, (batch, n_bits))
         noise_c, noise_d = normals(2, n_sc), normals(2, n_sc)
-        loc = None
-        if reroll and model in GEOMETRIC_CHANNELS:
-            u = torch.rand((batch, 2), generator=generator, device=dev)
-            loc = u * cfg.rx.loc_var - cfg.rx.loc_var / 2.0
+        loc = draw_rx_offsets(cfg, batch, generator, reroll)
         csi = (normals(2, n_ant, n_sc)
                if cfg.csi_epsilon or cfg.csi_snr_db is not None else None)
-        return FrameDraws(fade, bits_c, bits_d, noise_c, noise_d, loc, csi)
+        return FrameDraws(fade, bits_c, bits_d, noise_c, noise_d, loc, csi,
+                          draw_channel(cfg, batch, generator))
+
+
+def _i8(a, device):
+    return torch.as_tensor(np.array(a, np.int8), device=device)
+
+
+def chan_from_numpy(chan, device="cpu"):
+    """Channel draws of numpy (an array, a NamedTuple of arrays, or None)
+    as float32 tensors on ``device``."""
+    if chan is None or isinstance(chan, np.ndarray):
+        return _f32(chan, device)
+    return type(chan)(*(_f32(a, device) for a in chan))
+
+
+def draw_rx_offsets(cfg: LinkConfig, batch: int, generator: torch.Generator,
+                    reroll: bool) -> torch.Tensor | None:
+    """``[B, 2]`` RX offsets uniform in ``+-loc_var/2`` for the channels
+    whose RX is rerolled (``reference/mp_model.py:140-150``), else None."""
+    if not (reroll and cfg.channel.model in RX_REROLL_CHANNELS):
+        return None
+    u = torch.rand((batch, 2), generator=generator, device=generator.device)
+    return u * cfg.rx.loc_var - cfg.rx.loc_var / 2.0
+
+
+def draw_channel(cfg: LinkConfig, batch: int, generator: torch.Generator):
+    """The stochastic channel's own draws of ``batch`` frames (the JAX
+    channel's ``k_fade`` stream, ``mimo_ofdm_tpu/models/link.py:94-123``):
+    Rician scatter normals ``[B, 2, n_ant, n_sc]``, :class:`RandomPathsDraws`,
+    :class:`TdlDraws` or :class:`GscmDraws`; None for the other channels
+    (the Rayleigh fade is ``FrameDraws.fade``)."""
+    ch = cfg.channel
+    dev = generator.device
+    if ch.model == "rician":
+        return torch.randn((batch, 2, cfg.array.n_elements, cfg.modem.n_sub_carr),
+                           generator=generator, device=dev)
+    if ch.model == "random_paths":
+        return channels.RandomPathsDraws.draw(batch, generator, ch.n_paths,
+                                              ch.max_delay_spread)
+    if ch.model == "tdl_3gpp":
+        return channels.TdlDraws.draw(batch, generator, ch.tdl_profile,
+                                      ch.tdl_subpaths, ch.tdl_k_db,
+                                      ch.tdl_ds_log10_std)
+    if ch.model == "gscm":
+        return gscm.GscmDraws.draw(ch.gscm_scenario, batch, generator)
+    return None
 
 
 def link_static(cfg: LinkConfig, device="cpu"):
@@ -134,8 +182,8 @@ def rx_positions(rx_base: torch.Tensor, loc: torch.Tensor | None) -> torch.Tenso
     frames' x/y offsets (``reference/mp_model.py:140-150``; each axis uses
     its own base, as in the JAX package)."""
     if loc is None:
-        raise ValueError("the geometric channel is rerolled, but the draws "
-                         "carry no RX offsets (FrameDraws.loc)")
+        raise ValueError("the channel's RX is rerolled, but the draws carry "
+                         "no RX offsets (FrameDraws.loc)")
     loc = loc.to(rx_base.device)
     return rx_base + torch.cat([loc, torch.zeros_like(loc[:, :1])], dim=-1)
 
@@ -171,18 +219,15 @@ def frame_signature(frame, ibo_as_arg: bool, ibo_db: float):
     return frame_fn
 
 
-def _check_ported(cfg: LinkConfig) -> None:
-    """Raise ``NotImplementedError`` for the parts of the JAX package's
-    frame that later slices port, naming their ROADMAP item."""
+def _check_single_user(cfg: LinkConfig) -> None:
+    """Raise ``ValueError`` for configs the single-user frame does not take:
+    the multi-user ones go through ``models/link_mu.py``."""
     if (cfg.modem.n_users != 1 or cfg.precoding == "zf"
             or cfg.rx.algorithm in ("cnc_mu", "mcnc_mu")):
-        raise NotImplementedError(
-            "multi-user links (n_users > 1, zf precoding, cnc_mu/mcnc_mu "
-            "receivers) are not ported yet (ROADMAP queue 1: multi-user)")
-    if cfg.channel.model not in PORTED_CHANNELS:
-        raise NotImplementedError(
-            f"the {cfg.channel.model!r} channel is not ported yet (ROADMAP "
-            "queue 1: rician, random_paths, tdl_3gpp and gscm)")
+        raise ValueError(
+            "multi-user configs (n_users > 1, zf precoding, cnc_mu/mcnc_mu "
+            "receivers) run through models/link_mu.py (make_mu_frame_fn, "
+            "make_mu_round_fn)")
     if cfg.rx.algorithm not in ("cnc", "mcnc", "none"):
         raise ValueError(f"unsupported rx algorithm {cfg.rx.algorithm!r}")
 
@@ -190,26 +235,49 @@ def _check_ported(cfg: LinkConfig) -> None:
 def make_channel_fn(cfg: LinkConfig, freqs: torch.Tensor,
                     rx_base: torch.Tensor, reroll: bool):
     """Channel generator ``channel_fn(tx_pos, draws=None) -> [..., n_ant,
-    n_f]`` complex64 (``mimo_ofdm_tpu/models/link.py:54-126``). The
-    geometric channels move the RX by ``draws.loc`` when ``reroll``
-    (``reference/mp_model.py:140-150``); Rayleigh takes ``draws.fade``
-    (``reference/mp_model.py:154``). Without a reroll a geometric channel
-    has no batch dim."""
-    _check_ported(cfg)
+    n_f]`` complex64 (``mimo_ofdm_tpu/models/link.py:54-126``). ``draws``
+    is anything with the fields ``fade``, ``loc`` and ``chan`` of
+    :class:`FrameDraws` (a :class:`FrameDraws`, or a user's draws in the
+    multi-user frame). The channels of :data:`RX_REROLL_CHANNELS` move the
+    RX by ``draws.loc`` when ``reroll`` (``reference/mp_model.py:140-150``);
+    the stochastic ones take their draws from ``draws.fade`` (Rayleigh) or
+    ``draws.chan``. The TDL and GSCM array steering runs at ``fc =
+    mean(freqs)``, the mean of the grid handed in. Without a reroll LOS and
+    two-path have no batch dim."""
     model = cfg.channel.model
-    skip_att = cfg.channel.skip_attenuation
+    if model not in CHANNEL_MODELS:
+        raise ValueError(f"unknown channel model {model!r}")
+    ch = cfg.channel
+    skip_att = ch.skip_attenuation
 
-    def channel_fn(tx_pos: torch.Tensor, draws: FrameDraws | None = None):
+    def channel_fn(tx_pos: torch.Tensor, draws=None):
         if model == "awgn":
             return torch.ones((tx_pos.shape[0], freqs.shape[-1]),
                               dtype=torch.complex64, device=freqs.device)
         if model == "rayleigh":
             return channels.rayleigh_channel(draws.fade.to(freqs.device), tx_pos,
                                              rx_base, freqs, skip_att)
+        if model == "random_paths":
+            return channels.random_paths_channel(draws.chan, tx_pos, freqs)
         rx_pos = rx_positions(rx_base, draws.loc) if reroll else rx_base
         if model == "los":
             return channels.los_channel(tx_pos, rx_pos, freqs, skip_att)
-        return channels.two_path_channel(tx_pos, rx_pos, freqs, skip_att)
+        if model == "two_path":
+            return channels.two_path_channel(tx_pos, rx_pos, freqs, skip_att)
+        if model == "rician":
+            return channels.rician_channel(draws.chan, tx_pos, rx_pos, freqs,
+                                           ch.rician_k_db, skip_att)
+        if rx_pos.ndim == 1:                      # one drop per frame of the batch
+            rx_pos = rx_pos.expand(len(draws.chan[0]), 3)
+        if model == "tdl_3gpp":
+            return channels.tdl_channel(
+                draws.chan, tx_pos, rx_pos, freqs, ch.tdl_profile,
+                skip_attenuation=skip_att, n_subpaths=ch.tdl_subpaths,
+                asd_deg=ch.tdl_asd_deg, k_db=ch.tdl_k_db, k_std_db=ch.tdl_k_std_db,
+                ds_log10_std=ch.tdl_ds_log10_std)
+        return gscm.gscm_channel(draws.chan, tx_pos, rx_pos, freqs,
+                                 scenario=ch.gscm_scenario, skip_attenuation=skip_att,
+                                 element_pattern=ch.gscm_element_pattern)
 
     return channel_fn
 
@@ -230,7 +298,7 @@ def make_frame_fn(cfg: LinkConfig, n_iters: int, *, incl_clean: bool = True,
     from mimo_ofdm_tpu_torch.models import link_planar
 
     dev = resolve_device(device)
-    _check_ported(cfg)
+    _check_single_user(cfg)
     if cfg.channel_storage != "complex64" and link_planar.planar_eligible(cfg):
         return link_planar.make_planar_frame_fn(
             cfg, n_iters, incl_clean=incl_clean, reroll=reroll,
@@ -270,11 +338,7 @@ def _make_complex_frame_fn(cfg: LinkConfig, n_iters: int, incl_clean: bool,
         b = draws.batch
         h_sc = channel_fn(tx_pos, draws).expand(b, n_ant, n_sc)   # true channel
         if cfg.csi_epsilon:
-            # CSI error on the data bins (reference/mp_model.py:264-284)
-            p = (h_sc.abs() ** 2).mean(-1, keepdim=True)
-            csi_noise = noise_ops.complex_normal(draws.csi.to(dev).movedim(-3, -2))
-            h_pre_sc = (math.sqrt(1.0 - cfg.csi_epsilon ** 2) * h_sc
-                        + csi_noise * torch.sqrt(p).to(h_sc.dtype) * cfg.csi_epsilon)
+            h_pre_sc = channels.csi_error_sc(draws.csi.to(dev), h_sc, cfg.csi_epsilon)
         elif cfg.csi_snr_db is not None:
             # additive CSI noise at a fixed CSI SNR against the frame's mean
             # per-bin channel power

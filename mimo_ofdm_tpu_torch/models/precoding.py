@@ -1,13 +1,19 @@
-"""Single-user precoders and constant-IBO bookkeeping under precoding
-(port of ``mimo_ofdm_tpu/models/precoding.py:40-55,124-196``).
+"""MRT / phase-only / ZF precoders and constant-IBO bookkeeping under
+precoding (port of ``mimo_ofdm_tpu/models/precoding.py``).
 
-Shapes: the channel on the data subcarriers ``h_sc [..., n_ant, n_sc]``
-and the precoder ``V`` of the same shape; the per-frame quantities carry
-the leading batch dims.
+Shapes, with any leading batch dims:
+
+* single user: channel ``h_sc [..., n_ant, n_sc]``, precoder ``V`` of the
+  same shape;
+* multi-user: channels ``[..., n_usr, n_ant, n_sc]``, precoder ``V [...,
+  n_ant, n_usr, n_sc]`` (the per-transceiver slice layout of
+  ``reference/corrector.py:384``). The bookkeeping functions take
+  ``multi_user=True`` for it.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mimo_ofdm_tpu_torch.ops.pa import bussgang_alpha
@@ -28,32 +34,129 @@ def phase_precoder(h_sc: torch.Tensor) -> torch.Tensor:
     return torch.polar(torch.ones_like(ang), ang)
 
 
+def mu_mrt_precoder(h_sc_mu: torch.Tensor) -> torch.Tensor:
+    """Multi-user MRT, normalized jointly over users: the per-subcarrier
+    norm is ``sqrt(sum_usr sum_ant |H_u|^2)`` (``reference/antenna_array.py:201-220``).
+    ``[..., n_usr, n_ant, n_sc]`` -> ``V [..., n_ant, n_usr, n_sc]``."""
+    norm = torch.sqrt((h_sc_mu.abs() ** 2).sum((-3, -2)))[..., None, None, :]
+    return (torch.conj(h_sc_mu) / norm.to(h_sc_mu.dtype)).transpose(-3, -2)
+
+
+def mu_phase_precoder(h_sc_mu: torch.Tensor) -> torch.Tensor:
+    """Multi-user phase-only precoding (``reference/antenna_array.py:259-267``)."""
+    return phase_precoder(h_sc_mu).transpose(-3, -2)
+
+
+def _pinv_rtol(n: int) -> float:
+    """``jnp.linalg.pinv``'s default cutoff relative to the largest singular
+    value of an ``n x n`` float32 matrix."""
+    return 10.0 * n * float(np.finfo(np.float32).eps)
+
+
+def _pinv_2x2_hermitian(gram: torch.Tensor) -> torch.Tensor:
+    """Pseudo-inverse of Hermitian positive semi-definite ``[..., 2, 2]``
+    matrices in closed form, with ``jnp.linalg.pinv``'s cutoff: an
+    eigenvalue at most ``rtol`` times the larger one counts as zero. Full
+    rank: ``adj / det``; rank one: ``P / lam_hi`` with the projector ``P =
+    (G - lam_lo I) / (lam_hi - lam_lo)``; zero: zero. Unlike
+    ``torch.linalg.pinv`` (an SVD that checks its status on the host), it
+    never waits for the device."""
+    a, b = gram[..., 0, 0], gram[..., 0, 1]
+    c, d = gram[..., 1, 0], gram[..., 1, 1]
+    half_tr = (a.real + d.real) / 2
+    r = torch.sqrt(((a.real - d.real) / 2) ** 2 + b.abs() ** 2)
+    lam_hi, lam_lo = half_tr + r, half_tr - r
+    full = torch.stack([torch.stack([d, -b], -1), torch.stack([-c, a], -1)], -2)
+    full = full / (a * d - b * c)[..., None, None]
+    eye = torch.eye(2, dtype=gram.dtype, device=gram.device)
+    rank1 = (gram - lam_lo[..., None, None] * eye) / (2 * r * lam_hi)[..., None, None]
+    cut = _pinv_rtol(2) * lam_hi
+    out = torch.where((lam_lo.abs() > cut)[..., None, None], full, rank1)
+    return torch.where((lam_hi > 0)[..., None, None], out, torch.zeros_like(out))
+
+
+def zf_precoder(h_sc_mu: torch.Tensor) -> torch.Tensor:
+    """Zero-forcing precoding batched over frames and subcarriers
+    (``reference/antenna_array.py:222-257``): per subcarrier, with the
+    user-channel matrix ``Hm [n_usr, n_ant]``, ``V = sqrt(K - U) Hm^H (Hm
+    Hm^H)^{-1}``, then unit total power per subcarrier.
+    ``[..., n_usr, n_ant, n_sc]`` -> ``V [..., n_ant, n_usr, n_sc]``.
+
+    The JAX package inverts the Gram matrix with ``pinv``. For two users
+    the port takes the pseudo-inverse in closed form with pinv's cutoff,
+    which never waits for the device (a batched ``pinv`` on CUDA is an SVD
+    that checks its status on the host); for more users it calls
+    ``torch.linalg.pinv`` with JAX's default cutoff, which does."""
+    n_usr, n_ant = h_sc_mu.shape[-3], h_sc_mu.shape[-2]
+    hm = h_sc_mu.movedim(-1, -3)                            # [..., n_sc, n_usr, n_ant]
+    hm_h = torch.conj(hm.transpose(-2, -1))                 # [..., n_sc, n_ant, n_usr]
+    gram = hm @ hm_h                                        # [..., n_sc, n_usr, n_usr]
+    if n_usr == 2:
+        inv = _pinv_2x2_hermitian(gram)
+    else:
+        inv = torch.linalg.pinv(gram, rtol=_pinv_rtol(n_usr))
+    v = float(np.sqrt(np.float32(n_ant - n_usr))) * (hm_h @ inv)
+    pw2 = (v.abs() ** 2).sum((-2, -1), keepdim=True)
+    v = v / torch.sqrt(pw2).to(v.dtype)                     # [..., n_sc, n_ant, n_usr]
+    return v.movedim(-3, -1)
+
+
+def sep_carrier_channel(h_sc_mu: torch.Tensor) -> torch.Tensor:
+    """The composed channel of separate subcarriers per user: user ``u``
+    owns the ``u``-th of ``n_usr`` contiguous blocks of subcarriers,
+    ``[..., n_usr, n_ant, n_sc] -> [..., n_ant, n_sc]``
+    (``reference/antenna_array.py:275-305``)."""
+    n_usr, n_sc = h_sc_mu.shape[-3], h_sc_mu.shape[-1]
+    if n_sc % n_usr:
+        raise ValueError("n_sub_carr must divide by n_users for sep carriers")
+    blk = n_sc // n_usr
+    return torch.cat([h_sc_mu[..., u, :, u * blk:(u + 1) * blk] for u in range(n_usr)],
+                     dim=-1)
+
+
+def mu_sep_carrier_precoder(h_sc_mu: torch.Tensor, mr_precoding: bool = True
+                            ) -> torch.Tensor:
+    """Separate-subcarriers-per-user precoding
+    (``reference/antenna_array.py:275-305``): single-user MRT (or phase) of
+    the composed channel, a single-user-shaped ``V [..., n_ant, n_sc]``."""
+    composed = sep_carrier_channel(h_sc_mu)
+    return mrt_precoder(composed) if mr_precoding else phase_precoder(composed)
+
+
 def make_precoder(kind: str, n_users: int = 1):
-    """Single-user precoder by name: ``none``, ``mrt`` or ``phase``. The
-    multi-user precoders (including ``zf``) wait for the multi-user slice."""
-    if n_users != 1 or kind == "zf":
-        raise NotImplementedError(
-            f"the multi-user precoders ({kind!r} for {n_users} users) are not "
-            "ported yet (ROADMAP queue 1: multi-user)")
+    """Precoder by name (``mimo_ofdm_tpu/models/precoding.py:124-145``):
+    ``none``, ``mrt`` or ``phase`` for one user; ``mrt``, ``phase`` or
+    ``zf`` for several, taking ``[..., n_usr, n_ant, n_sc]``."""
     if kind == "none":
         return torch.ones_like
+    if n_users == 1:
+        if kind == "mrt":
+            return mrt_precoder
+        if kind == "phase":
+            return phase_precoder
+        raise ValueError(f"unknown single-user precoder {kind!r}")
     if kind == "mrt":
-        return mrt_precoder
+        return mu_mrt_precoder
     if kind == "phase":
-        return phase_precoder
-    raise ValueError(f"unknown single-user precoder {kind!r}")
+        return mu_phase_precoder
+    if kind == "zf":
+        return zf_precoder
+    raise ValueError(f"unknown multi-user precoder {kind!r}")
 
 
-def precoding_power_per_antenna(v: torch.Tensor) -> torch.Tensor:
-    """``vk_pow_vec[..., a] = sum_sc |V|^2`` (``reference/corrector.py:143``,
-    ``reference/mp_model.py:302``)."""
-    return (v.abs() ** 2).sum(-1)
+def precoding_power_per_antenna(v: torch.Tensor, multi_user: bool = False
+                                ) -> torch.Tensor:
+    """``vk_pow_vec[..., a] = sum_sc (sum_usr) |V|^2``
+    (``reference/corrector.py:143,383``, ``reference/mp_model.py:302``)."""
+    return (v.abs() ** 2).sum((-2, -1) if multi_user else -1)
 
 
-def avg_precoding_gain(v: torch.Tensor) -> torch.Tensor:
-    """Mean precoding power gain over antennas x subcarriers, ``[...]``
+def avg_precoding_gain(v: torch.Tensor, multi_user: bool = False) -> torch.Tensor:
+    """Mean precoding power gain over antennas x subcarriers, ``[...]``;
+    for several users the per-(antenna, bin) power summed over users
     (``reference/antenna_array.py:328-341``)."""
-    return (v.abs() ** 2).mean((-2, -1))
+    pw = v.abs() ** 2
+    return (pw.sum(-2) if multi_user else pw).mean((-2, -1))
 
 
 def per_antenna_ibo_db(ibo_db, vk_pow_vec: torch.Tensor, n_sub_carr: int,
@@ -72,10 +175,11 @@ def per_antenna_alpha(ibo_db, vk_pow_vec: torch.Tensor, n_sub_carr: int,
     return bussgang_alpha(per_antenna_ibo_db(ibo_db, vk_pow_vec, n_sub_carr, n_ant))
 
 
-def pa_sat_power(ibo_db: float, avg_sample_power: float,
-                 v: torch.Tensor) -> torch.Tensor:
+def pa_sat_power(ibo_db: float, avg_sample_power: float, v: torch.Tensor,
+                 multi_user: bool = False) -> torch.Tensor:
     """Per-frame PA saturation power under constant IBO: every PA's expected
     average power is rescaled by the mean precoding gain
     (``reference/antenna_array.py:313-360``):
     ``sat = 10^(ibo/10) * avg_sample_power * avg_precoding_gain``."""
-    return 10.0 ** (ibo_db / 10.0) * avg_sample_power * avg_precoding_gain(v)
+    return (10.0 ** (ibo_db / 10.0) * avg_sample_power
+            * avg_precoding_gain(v, multi_user))

@@ -1,5 +1,5 @@
 """CNC clipping-noise-cancellation receivers
-(port of ``mimo_ofdm_tpu/models/receivers.py:50-166``).
+(port of ``mimo_ofdm_tpu/models/receivers.py:50-213``).
 
 One generic iteration loop parameterized by a *replica function*, the model
 of the TX chain whose output minus the detected symbols is the distortion
@@ -10,6 +10,9 @@ estimate:
 * MCNC (``reference/corrector.py:165-207``): replica = the full precoded
   array TX + channel + AGC divide (:func:`make_mcnc_replica`; the planar
   frame builds its own on planes).
+* CNC-MU / MCNC-MU (``reference/corrector.py:248-489``): the two-user
+  variants with the other user's symbols known
+  (:func:`make_cnc_mu_replica`, :func:`make_mcnc_mu_replica`).
 
 The loop runs a fixed ``n_iters + 1`` detection passes and stacks every
 pass's hard bits, as the JAX ``lax.scan`` does; here it is a Python loop.
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from mimo_ofdm_tpu_torch.models import channels, transmit
@@ -94,6 +98,55 @@ def make_mcnc_replica(h_sc: torch.Tensor, v: torch.Tensor,
         fd_dist_sc = transmit.ifft_pa_fft_sc(per_ant_sc, n_fft, pa_model,
                                              sat_power, rapp_p, toi_coeff,
                                              use_mxu_fft=use_mxu_fft,
+                                             mxu_storage=mxu_storage)
+        return channels.propagate(h_sc, fd_dist_sc) / agc_corr_sc
+
+    return replica
+
+
+def make_cnc_mu_replica(other_usr_symbols: torch.Tensor, *, constel_size: int,
+                        n_fft: int, n_sc: int, ibo_db: float,
+                        pa_model: str = "softlim", alpha=None,
+                        rapp_p: float = 1.1, use_mxu_fft: bool = False,
+                        mxu_storage: str = "float32"):
+    """Two-user CNC replica with the other user's symbols known
+    (``reference/corrector.py:288-345``): the equal-power combine
+    ``sqrt(2)/2 (own + other)`` meets the single-PA replica.
+    ``other_usr_symbols`` broadcasts against the detected symbols."""
+    base = make_cnc_replica(constel_size, n_fft, n_sc, ibo_db, pa_model, alpha,
+                            rapp_p, use_mxu_fft=use_mxu_fft, mxu_storage=mxu_storage)
+    w = float(np.sqrt(np.float32(2.0)) / np.float32(2.0))
+
+    def replica(det_sym: torch.Tensor) -> torch.Tensor:
+        return base(w * det_sym + w * other_usr_symbols)
+
+    return replica
+
+
+def make_mcnc_mu_replica(usr_symbols: torch.Tensor, h_sc: torch.Tensor,
+                         v: torch.Tensor, agc_corr_sc: torch.Tensor, *,
+                         constel_size: int, n_fft: int, n_sc: int,
+                         pa_model: str = "softlim", sat_power, rapp_p: float = 1.1,
+                         use_mxu_fft: bool = False, mxu_storage: str = "float32"):
+    """Multi-user MCNC replica (``reference/corrector.py:405-451``) of every
+    user at once, users first: user ``u``'s detected symbols and the known
+    symbols of the other users, in user order, go through the full
+    multi-user TX (precode ``v [..., n_ant, n_usr, n_sc]``, summed), user
+    ``u``'s channel and its AGC divide. The replica takes ``det_sym [n_usr,
+    ..., n_sc]``; ``usr_symbols [..., n_usr, n_sc]`` are all users' known
+    symbols, of which user ``u``'s row is replaced by its detection; ``h_sc
+    [n_usr, ..., n_ant, n_sc]`` and ``agc_corr_sc [n_usr, ..., n_sc]``. One
+    chain pass covers all users' antenna rows; user ``u``'s slice equals
+    the JAX package's two-user replica with ``usr_idx=u``."""
+    n_usr = usr_symbols.shape[-2]
+    own = torch.eye(n_usr, dtype=torch.bool, device=usr_symbols.device).view(
+        n_usr, *([1] * (usr_symbols.ndim - 2)), n_usr, 1)
+
+    def replica(det_sym: torch.Tensor) -> torch.Tensor:
+        sym_mu = torch.where(own, det_sym[..., None, :], usr_symbols)
+        per_ant_sc = transmit.precode_symbols(sym_mu, v, sum_users=True)
+        fd_dist_sc = transmit.ifft_pa_fft_sc(per_ant_sc, n_fft, pa_model, sat_power,
+                                             rapp_p, use_mxu_fft=use_mxu_fft,
                                              mxu_storage=mxu_storage)
         return channels.propagate(h_sc, fd_dist_sc) / agc_corr_sc
 

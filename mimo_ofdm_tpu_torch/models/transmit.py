@@ -1,7 +1,8 @@
 """Transmit side: symbol mapping, precoding and the distorted-TX core
-(port of ``mimo_ofdm_tpu/models/transmit.py:28-176``).
+(port of ``mimo_ofdm_tpu/models/transmit.py:28-193``).
 
     bits -> QAM symbols [..., n_sc] -> precode [..., n_ant, n_sc]
+            (several users: summed over users before the chain)
          -> embed subcarriers -> ortho IFFT -> per-row PA -> ortho FFT
 
 With ``use_mxu_fft`` (the JAX package's name for "run the fused chain") and
@@ -24,17 +25,26 @@ from mimo_ofdm_tpu_torch.ops import fused_chain, ofdm, pa, qam
 
 def modulate_users(bits: torch.Tensor, constel_size: int,
                    dtype=torch.complex64) -> torch.Tensor:
-    """bits ``[..., n_bits]`` -> symbols ``[..., n_sc]``
-    (``reference/modulation.py:346-367``)."""
+    """bits ``[..., n_bits]`` (or ``[..., n_usr, n_bits]``) -> symbols
+    ``[..., n_sc]`` (``[..., n_usr, n_sc]``) (``reference/modulation.py:346-367``)."""
     return qam.modulate_bits(bits, constel_size, dtype)
 
 
-def precode_symbols(symbols: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Single-user frequency-domain precoding: ``symbols [..., n_sc]`` times
-    ``v [..., n_ant, n_sc]`` -> ``[..., n_ant, n_sc]``
-    (``reference/modulation.py:373``). The multi-user form waits for the
-    multi-user slice (ROADMAP queue 1)."""
-    return symbols[..., None, :] * v
+def precode_symbols(symbols: torch.Tensor, v: torch.Tensor,
+                    sum_users: bool | None = None) -> torch.Tensor:
+    """Frequency-domain precoding.
+
+    * single user (``sum_users=None``): ``symbols [..., n_sc]`` times ``v
+      [..., n_ant, n_sc]`` -> ``[..., n_ant, n_sc]``
+      (``reference/modulation.py:373``);
+    * multi-user: ``symbols [..., n_usr, n_sc]`` and ``v [..., n_ant, n_usr,
+      n_sc]`` -> the users' sum ``[..., n_ant, n_sc]`` with
+      ``sum_users=True``, or per user ``[..., n_usr, n_ant, n_sc]`` with
+      ``False`` (``reference/modulation.py:373-382``)."""
+    if sum_users is None:
+        return symbols[..., None, :] * v
+    per_usr = symbols[..., :, None, :] * v.transpose(-3, -2)
+    return per_usr.sum(-3) if sum_users else per_usr
 
 
 def _per_sample(v):
@@ -110,3 +120,19 @@ def array_transmit_fd(bits: torch.Tensor, *, constel_size: int, n_fft: int,
     fd_dist = ifft_pa_fft(fd_clean, pa_model, sat_power, rapp_p, toi_coeff,
                           use_mxu_fft=use_mxu_fft, mxu_storage=mxu_storage)
     return (fd_dist, fd_clean) if return_clean else fd_dist
+
+
+def array_transmit_sc(bits: torch.Tensor, *, constel_size: int, n_fft: int,
+                      v: torch.Tensor, pa_model: str = "softlim", sat_power=1.0,
+                      rapp_p: float = 1.1, toi_coeff=0.0,
+                      sum_users: bool | None = None, use_mxu_fft: bool = False,
+                      mxu_storage: str = "float32") -> torch.Tensor:
+    """Array transmit straight to the ``[..., n_ant, n_sc]`` data bins
+    (``mimo_ofdm_tpu/models/transmit.py:178-193``): modulate, precode
+    (``sum_users`` as in :func:`precode_symbols`) and one pass of the
+    distorted-TX core over every antenna row."""
+    per_ant_sc = precode_symbols(modulate_users(bits, constel_size), v,
+                                 sum_users=sum_users)
+    return ifft_pa_fft_sc(per_ant_sc, n_fft, pa_model, sat_power, rapp_p,
+                          toi_coeff, use_mxu_fft=use_mxu_fft,
+                          mxu_storage=mxu_storage)

@@ -67,9 +67,8 @@ class ArrayConfig:
 
 @dataclass(frozen=True)
 class ChannelConfig:
-    """MISO channel model selection (``reference/channel.py``). The port
-    runs ``rayleigh`` so far; the other models' fields are kept so configs
-    round-trip unchanged."""
+    """MISO channel model selection (``reference/channel.py``); every model
+    runs on the port."""
     model: str = "los"  # los | two_path | rayleigh | rician | random_paths | tdl_3gpp | gscm
     skip_attenuation: bool = False
     n_paths: int = 10             # random_paths
@@ -117,7 +116,8 @@ class LinkConfig:
     # "bfloat16" (the kernel computes in float32 either way).
     mxu_fft_storage: str = "bfloat16"
     # Channel-block storage: "bfloat16" / "float32" planes (the planar
-    # path, models/link_planar.py) or "complex64" (not yet ported).
+    # path, models/link_planar.py) or "complex64" (the complex64 branch of
+    # models/link.py, which also takes every config the planes do not).
     channel_storage: str = "bfloat16"
 
     _MXU_STORAGE_VALUES = ("float32", "bfloat16")

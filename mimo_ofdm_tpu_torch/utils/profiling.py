@@ -1,11 +1,13 @@
 """Where a round's device time goes: ``torch.profiler`` over a few
 Monte-Carlo rounds on the card: bench.py's Rayleigh frame, the repo's
 canonical configuration (LOS, RX rerolled per frame), its two-path
-variant, and the canonical LOS on the complex64 branch (f32 chain).
+variant, the canonical LOS on the complex64 branch (f32 chain), the TR
+38.901 TDL and GSCM (uma_los) channels, and the multi-user link of
+``multiuser_ber`` (2 users, MRT; CNC and MCNC-MU).
 
-    python -m mimo_ofdm_tpu_torch.utils.profiling [--batch 128] [--rounds 3]
+    python -m mimo_ofdm_tpu_torch.utils.profiling [--batch 128] [--rounds 3] [--frames tdl,mu]
 
-Prints one JSON line per frame and arm (CNC, MCNC) with the wall time per round, the
+Prints one JSON line per frame and arm with the wall time per round, the
 device-busy time per round (sum of kernel durations), the idle share, and
 the kernels that take the most device time, grouped by name. Needs a CUDA
 device.
@@ -22,7 +24,7 @@ from collections import defaultdict
 
 import torch
 
-from mimo_ofdm_tpu_torch.models import link
+from mimo_ofdm_tpu_torch.models import link, link_mu
 from mimo_ofdm_tpu_torch.utils import config
 
 
@@ -49,8 +51,11 @@ def _kernel_times(prof) -> dict[str, list[float]]:
 
 def profile_round(cfg: config.LinkConfig, n_iters: int, batch: int,
                   rounds: int, device="cuda", top: int = 12) -> dict:
-    """Profile ``rounds`` rounds after two warm-up rounds."""
-    round_fn = link.make_round_fn(cfg, n_iters, batch, device=device)
+    """Profile ``rounds`` rounds after two warm-up rounds; a config with
+    several users profiles ``link_mu``'s round at its default two-user
+    geometry."""
+    make = link_mu.make_mu_round_fn if cfg.modem.n_users > 1 else link.make_round_fn
+    round_fn = make(cfg, n_iters, batch, device=device)
     for i in range(2):
         round_fn(1, 1000 + i, 15.0)
     torch.cuda.synchronize()
@@ -81,17 +86,30 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--frames", default=None,
+                    help="comma-separated frame names (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
     canonical, _ = config.canonical_miso_cnc()
-    frames = {"bench_rayleigh": canonical.replace(channel=config.ChannelConfig(model="rayleigh")),
-              "canonical_los": canonical,
-              "two_path": canonical.replace(channel=config.ChannelConfig(model="two_path")),
-              "complex64_los": canonical.replace(channel_storage="complex64",
-                                                 mxu_fft_storage="float32")}
-    for name, base in frames.items():
-        for alg in ("cnc", "mcnc"):
+    mu = canonical.replace(modem=dataclasses.replace(canonical.modem, n_users=2))
+    su_algs, mu_algs = ("cnc", "mcnc"), ("cnc", "mcnc_mu")
+    frames = {"bench_rayleigh": (canonical.replace(
+                  channel=config.ChannelConfig(model="rayleigh")), su_algs),
+              "canonical_los": (canonical, su_algs),
+              "two_path": (canonical.replace(
+                  channel=config.ChannelConfig(model="two_path")), su_algs),
+              "complex64_los": (canonical.replace(channel_storage="complex64",
+                                                  mxu_fft_storage="float32"), su_algs),
+              "tdl": (canonical.replace(channel=config.ChannelConfig(model="tdl_3gpp")),
+                      su_algs),
+              "gscm": (canonical.replace(channel=config.ChannelConfig(model="gscm")),
+                       su_algs),
+              "mu": (mu, mu_algs)}
+    names = args.frames.split(",") if args.frames else list(frames)
+    for name in names:
+        base, algs = frames[name]
+        for alg in algs:
             cfg = base.replace(rx=dataclasses.replace(base.rx, algorithm=alg))
             res = profile_round(cfg, 8, args.batch, args.rounds)
             print(json.dumps({"card": card(), "frame": name, **res}), flush=True)

@@ -1,4 +1,5 @@
-"""The fused_pa CUDA kernel against its plain PyTorch version, on the card.
+"""The fused_pa CUDA kernel against its plain PyTorch version, on the card,
+alone and inside the single- and multi-user frames.
 
 Marked ``gpu``; every test takes the ``cuda`` fixture, which skips when
 there is no card (decided at run time, never at import, so that every test
@@ -196,3 +197,90 @@ def test_geometric_frames_kernel_equal_plain(cuda, model, storage):
                                          r.dist_err.cpu().numpy()], axis=1)
         np.testing.assert_array_equal(out[False], out[True])
         assert out[False][:, 1].sum() > 0
+
+
+@pytest.mark.parametrize("model", ["rician", "random_paths", "tdl_3gpp", "gscm"])
+def test_stochastic_frames_kernel_equal_plain(cuda, model):
+    """The complex64 frame on each stochastic channel, f32 chain storage:
+    the kernel and the plain version give the same counters, with one TX
+    launch and one launch per replica pass."""
+    cfg = config.LinkConfig(
+        modem=config.ModemConfig(n_fft=1024, n_sub_carr=512),
+        array=config.ArrayConfig(n_elements=8),
+        channel=config.ChannelConfig(model=model), mxu_fft_storage="float32")
+    for alg in ("cnc", "mcnc"):
+        c = cfg.replace(rx=dataclasses.replace(cfg.rx, algorithm=alg))
+        frame = link.make_frame_fn(c, 2, device=cuda)
+        draws = link.FrameDraws.draw(c, 8, torch.Generator(device=cuda).manual_seed(6))
+        out = {}
+        for plain in (False, True):
+            before = KERNEL.launches
+            KERNEL.force_plain = plain
+            try:
+                r = frame(25.0, draws)
+            finally:
+                KERNEL.force_plain = False
+            assert KERNEL.launches - before == (0 if plain else 1 + 3)
+            out[plain] = np.concatenate([r.clean_err.cpu().numpy()[:, None],
+                                         r.dist_err.cpu().numpy()], axis=1)
+        np.testing.assert_array_equal(out[False], out[True])
+
+
+def _mu_cfg(prec, alg, storage="float32"):
+    return config.LinkConfig(
+        modem=config.ModemConfig(n_fft=1024, n_sub_carr=512, n_users=2),
+        array=config.ArrayConfig(n_elements=8), precoding=prec,
+        rx=config.RxConfig(algorithm=alg), mxu_fft_storage=storage)
+
+
+@pytest.mark.parametrize("prec,alg,sep", [("mrt", "cnc", False), ("zf", "cnc", False),
+                                          ("mrt", "cnc_mu", False), ("mrt", "mcnc_mu", False),
+                                          ("mrt", "cnc", True)])
+def test_mu_frame_kernel_equal_plain(cuda, prec, alg, sep):
+    """The multi-user frame, f32 chain storage: the kernel and the plain
+    version give the same per-user counters, with the users folded into
+    one launch for the TX and one per replica pass."""
+    from mimo_ofdm_tpu_torch.models import link_mu
+    cfg = _mu_cfg(prec, alg)
+    pos = link_mu.default_user_positions()
+    builder = link_mu.make_mu_sep_frame_fn if sep else link_mu.make_mu_frame_fn
+    frame = builder(cfg, 2, pos, device=cuda)
+    draws = link_mu.MuFrameDraws.draw(cfg, 2, 8, torch.Generator(device=cuda).manual_seed(7),
+                                      sep_carriers=sep)
+    out = {}
+    for plain in (False, True):
+        before = KERNEL.launches
+        KERNEL.force_plain = plain
+        try:
+            r = frame(25.0, draws)
+        finally:
+            KERNEL.force_plain = False
+        assert KERNEL.launches - before == (0 if plain else 1 + 3)
+        out[plain] = (r.clean_err.cpu().numpy(), r.dist_err.cpu().numpy())
+    np.testing.assert_array_equal(out[False][0], out[True][0])
+    np.testing.assert_array_equal(out[False][1], out[True][1])
+
+
+@pytest.mark.parametrize("kind", ["mu_zf_mcnc_mu", "mu_mrt_cnc", "tdl_3gpp", "gscm"])
+def test_rounds_never_wait_for_the_device(cuda, kind):
+    """After a warm-up round (kernel build, constant tables), a round of the
+    multi-user link or of the TDL/GSCM complex64 frame makes no call that
+    synchronizes with the device."""
+    from mimo_ofdm_tpu_torch.models import link_mu
+    if kind.startswith("mu_"):
+        _, prec, alg = kind.split("_", 2)
+        round_fn = link_mu.make_mu_round_fn(_mu_cfg(prec, alg, "bfloat16"), 2, 4,
+                                            device=cuda)
+    else:
+        cfg = config.LinkConfig(modem=config.ModemConfig(n_fft=1024, n_sub_carr=512),
+                                array=config.ArrayConfig(n_elements=8),
+                                channel=config.ChannelConfig(model=kind))
+        round_fn = link.make_round_fn(cfg, 2, 4, device=cuda)
+    round_fn(0, 0, 20.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = round_fn(0, 1, 20.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.dtype == torch.int32

@@ -33,6 +33,7 @@ RUNS = {
                                   ebn0_max=10.0, ebn0_step=2.0),
     "toi_ber_vs_ebn0": dict(FEW, ebn0_min=8.0, ebn0_max=10.0, ebn0_step=2.0,
                             n_est_symbols=64),
+    "multiuser_ber": dict(FEW, n_ant=4, ebn0_min=8.0, ebn0_max=10.0, ebn0_step=2.0),
 }
 
 
@@ -78,6 +79,32 @@ def test_los_sweep_ber_matches_jax_statistically(tmp_path, monkeypatch):
     sd = np.sqrt(np.maximum(pool * (1 - pool), 1.0 / n) * 2.0 / n)
     assert np.all(np.abs(bp - bj) <= 5 * sd), (bj, bp)
     assert np.all(bp[1] > bp[-1]) and bp[0, 0] > 0      # CNC helps on LOS at IBO 0
+
+
+def test_multiuser_ber_matches_jax(tmp_path, monkeypatch):
+    """multiuser_ber (2 users, LOS, MRT, CNC, 8 iterations) at two Eb/N0
+    points with a fixed bit budget: the CSV has JAX's name and layout
+    (Eb/N0, then per user the clean row and it0..it8: 1 + 2 x 10 rows), and
+    every per-user BER is within 5 binomial standard deviations of JAX's.
+    (The far user's BER rises with the iterations under MRT cross-talk, in
+    both packages.)"""
+    monkeypatch.setenv("MIMO_OFDM_TPU_RESULTS", str(tmp_path / "jax"))
+    monkeypatch.setenv("MIMO_OFDM_TPU_TORCH_RESULTS", str(tmp_path / "port"))
+    n_bits = 6 * 8 * 768
+    kw = dict(n_ant=8, n_iters=8, ebn0_min=10.0, ebn0_max=15.0, ebn0_step=5.0,
+              n_err_min=10 ** 9, bits_sent_max=n_bits, batch=8, small=True, verbose=False)
+    je, jb = JAX_EXPERIMENTS["multiuser_ber"](**kw)
+    pe, pb = EXPERIMENTS["multiuser_ber"](**kw, device="cpu")
+    np.testing.assert_array_equal(pe, je)
+    files = _csv_shapes(tmp_path / "port")
+    assert files == _csv_shapes(tmp_path / "jax") and list(files.values()) == [[2] * 21]
+    x, ber = results.load_ber_sweep(next(iter(files)).removesuffix(".csv"), tmp_path / "port")
+    np.testing.assert_array_equal(x, [10.0, 15.0])
+    np.testing.assert_allclose(ber.reshape(2, 10, 2), pb, rtol=1e-12)
+    pool = (jb + pb) / 2
+    sd = np.sqrt(np.maximum(pool * (1 - pool), 1.0 / n_bits) * 2.0 / n_bits)
+    assert np.all(np.abs(pb - jb) <= 5 * sd), (jb, pb)
+    assert np.all(pb[0, 1] > pb[0, -1])          # CNC helps the near user at IBO 0
 
 
 def test_toi_alpha_matches_jax():

@@ -149,28 +149,30 @@ def test_config_round_trip_and_eligibility():
 
 
 def test_entry_points_dispatch_and_device():
-    """LOS, two-path, AWGN, complex64 storage, the none/phase precoders,
-    both CSI-error models and the circular/planar arrays build; what later
-    slices port raises NotImplementedError naming its ROADMAP item; an
-    entry point with no card and no device="cpu" raises."""
+    """Every channel model (LOS, two-path, AWGN, Rician, random paths, TDL,
+    GSCM), complex64 storage, the none/phase precoders, both CSI-error
+    models and the circular/planar arrays build; multi-user configs raise
+    ValueError naming models/link_mu.py, which runs them; an unknown channel
+    raises; an entry point with no card and no device="cpu" raises."""
     pcfg = _port_cfg(_jax_cfg())
     geo = dict(n_elements=12, n_rows=3, n_cols=4)
     for cfg in (pcfg.replace(channel_storage="complex64"),
-                pcfg.replace(channel=pt_config.ChannelConfig(model="los")),
-                pcfg.replace(channel=pt_config.ChannelConfig(model="two_path")),
+                *[pcfg.replace(channel=pt_config.ChannelConfig(model=m))
+                  for m in ("los", "two_path", "rician", "random_paths", "tdl_3gpp", "gscm")],
                 pcfg.replace(channel=pt_config.ChannelConfig(model="awgn"), precoding="none"),
                 pcfg.replace(precoding="phase"), pcfg.replace(csi_epsilon=0.1),
                 pcfg.replace(csi_snr_db=15.0),
                 pcfg.replace(array=pt_config.ArrayConfig(geometry="circular", **geo)),
                 pcfg.replace(array=pt_config.ArrayConfig(geometry="planar", **geo))):
         link.make_frame_fn(cfg, 1, device="cpu")
-    for cfg, item in ((pcfg.replace(channel=pt_config.ChannelConfig(model="random_paths")),
-                       "random_paths"),
-                      (pcfg.replace(modem=dataclasses.replace(pcfg.modem, n_users=2)),
-                       "multi-user"),
-                      (pcfg.replace(precoding="zf"), "multi-user")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1: .*{item}"):
+    for cfg in (pcfg.replace(modem=dataclasses.replace(pcfg.modem, n_users=2)),
+                pcfg.replace(precoding="zf"),
+                pcfg.replace(rx=pt_config.RxConfig(algorithm="mcnc_mu"))):
+        with pytest.raises(ValueError, match="link_mu"):
             link.make_frame_fn(cfg, 1, device="cpu")
+    with pytest.raises(ValueError, match="unknown channel model"):
+        link.make_frame_fn(pcfg.replace(channel=pt_config.ChannelConfig(model="quadriga"),
+                                        channel_storage="complex64"), 1, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             link.make_round_fn(pcfg, 1, 2)
