@@ -51,6 +51,19 @@ Phases, each printing one JSON line:
    two-point multiuser_ber sweep whose CSV name and layout are checked,
    with its ratio to the committed full-width curve printed.
 
+12. coded: ``ldpc_ref_ber``'s configuration at full width (64 antennas,
+   LOS, IBO 0 dB, 8 CNC iterations, rate 1/2: A = 6144, CRC24A, BG1, Zc
+   288, one code block; 12 sum-product iterations), one round of 16 frames
+   per receiver at Eb/N0 1 dB with 10 launches a round, sane BERs and
+   BLERs (clean BER at most iteration 0's), frames/s, device ms by op class
+   (decode, soft demap, chain, rest) and peak memory; one round of
+   ``ldpc_in_loop_ber``'s defaults (rate 1/3, 16 antennas, 3 iterations: 5
+   launches) and of the raw IRA codeword of ``ldpc_coded_ber(family="ira")``;
+   f32 coded frames (CNC, MCNC, 2 frames) equal through the kernel and the
+   plain version; a two-point ``ldpc_ref_ber`` sweep (Eb/N0 1 and 5 dB, 3
+   rounds a point) whose BER and BLER CSVs are checked for name and layout,
+   with its ratio to the committed nant64 curve printed.
+
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
 script exits non-zero without the last line; so does a machine with no
@@ -597,6 +610,177 @@ def multiuser(fp, config, link_mu, results, ber_sweeps, dev, batch: int, snr: fl
     return out
 
 
+CODED_BATCH = 16                # the coded experiments' default batch
+CODED_EBN0_DB = (1.0, 5.0)
+CODED_REFERENCE_CSV = ("ldpc_1_2_ber_vs_ebn0_cnc_los_nant64_ibo0_ebn0_min-5_max15_step1.00"
+                       "_niter1_2_3_4_5_6_7_8")
+
+
+def drive_coded(fp, profiling, name: str, round_fn, n_iters: int, payload_bits: int,
+                blocks: bool, dev, batch: int, snr: float, card: str = "") -> dict:
+    """One timed coded round after a warm-up, with the launch count zeroed
+    just before and read just after and the peak memory reset before it;
+    then the op-class profile of one more round. Fails unless there are
+    ``n_iters + 2`` launches (TX and every replica pass), every BER is in
+    [0, 0.5), every BLER in [0, 1], and the clean BER is at most iteration
+    0's."""
+    kern = fp.fused_ifft_pa_fft
+    round_fn(0, 10_000, snr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    kern.launches = 0
+    t0 = time.perf_counter()
+    start.record()
+    total = round_fn(0, 0, snr)
+    end.record()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = kern.launches
+    peak = torch.cuda.max_memory_allocated()
+    counts = total.cpu().tolist()
+    n = n_iters + 2
+    ber = [c / (batch * payload_bits) for c in counts[:n]]
+    bler = [c / batch for c in counts[n:]]
+    prof = profiling.profile_coded_round(round_fn, 1, snr)
+    line = {"path": name, "batch": batch, "snr_db": snr, "counters": counts, "ber": ber,
+            "bler": bler, "launches": launches, "expected_launches": n,
+            "seconds": dt, "frames_per_s": batch / dt,
+            "stream_ms": start.elapsed_time(end), "peak_memory_bytes": peak,
+            "profile": prof, "card": card}
+    print(json.dumps({"phase": "coded", **line}), flush=True)
+    if launches != n:
+        raise AssertionError(f"coded {name}: {launches} kernel launches, expected {n}")
+    if (not all(0 <= b < 0.5 for b in ber) or not all(0 <= b <= 1 for b in bler)
+            or not ber[0] <= ber[1] or (blocks and len(bler) != n)):
+        raise AssertionError(f"coded {name}: insane counters {counts}")
+    return line
+
+
+def coded_kernel_vs_plain(fp, link, link_ldpc, ber_sweeps, dev, snr: float,
+                          batch: int = 2, n_ant: int = 64, small: bool = False) -> dict:
+    """f32 coded frames of ldpc_ref_ber's configuration with fixed draws,
+    through the kernel and through the plain version forced on CUDA
+    tensors: the counters must be equal."""
+    kern = fp.fused_ifft_pa_fft
+    res = {}
+    for alg in ("cnc", "mcnc"):
+        cfg = ber_sweeps.coded_link_config("los", alg, n_ant, 0.0, small).replace(
+            mxu_fft_storage="float32")
+        chain = link_ldpc.reference_chain(cfg, 0.5)
+        frame = link_ldpc.make_transport_frame_fn(cfg, N_ITERS, chain, 12,
+                                                  ldpc_algorithm="sumprod", device=dev)
+        draws = link.FrameDraws.draw(cfg, batch, torch.Generator(device=dev).manual_seed(11),
+                                     n_bits=chain.a)
+        got = {}
+        for plain in (False, True):
+            kern.force_plain = plain
+            try:
+                c = frame(snr, draws)
+            finally:
+                kern.force_plain = False
+            got[plain] = [x.cpu().tolist() for x in c]
+        line = {"frame": f"coded_{alg}", "batch": batch, "snr_db": snr, "kernel": got[False],
+                "plain": got[True], "equal": got[False] == got[True]}
+        print(json.dumps({"phase": "frame", **line}), flush=True)
+        if not line["equal"]:
+            raise AssertionError(f"coded_{alg}: kernel and plain frames disagree: {line}")
+        res[alg] = line
+    return res
+
+
+def coded_sweep(fp, results, ber_sweeps, dev, batch: int, card: str = "", n_ant: int = 64,
+                small: bool = False) -> dict:
+    """A two-point ldpc_ref_ber sweep (CNC, 8 iterations, Eb/N0 1 and 5 dB,
+    a bit budget of 3 rounds a point) into a temporary directory. Its BER
+    and BLER CSVs must have ber_sweep_filename's names and the layout
+    Eb/N0, clean, it0..it8. Prints, and does not check, its BERs' ratio to
+    the committed full-width curve. ``n_ant`` and ``small`` exist for
+    rehearsals on the CPU."""
+    kern = fp.fused_ifft_pa_fft
+    payload = (768 if small else 12288) // 2
+    ebn0 = CODED_EBN0_DB
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_coded_csv_")
+    old = os.environ.get("MIMO_OFDM_TPU_TORCH_RESULTS")
+    os.environ["MIMO_OFDM_TPU_TORCH_RESULTS"] = tmp
+    try:
+        torch.cuda.synchronize()
+        kern.launches = 0
+        t0 = time.perf_counter()
+        x, ber = ber_sweeps.ldpc_ref_ber(
+            n_ant=n_ant, n_iters=N_ITERS, ebn0_min=ebn0[0], ebn0_max=ebn0[1],
+            ebn0_step=ebn0[1] - ebn0[0], n_err_min=10 ** 9,
+            bits_sent_max=3 * batch * payload, batch=batch, small=small, verbose=False,
+            device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = kern.launches
+        name = results.ber_sweep_filename("ldpc_1_2_ber_vs_ebn0", "cnc", "los", n_ant, 0.0,
+                                          x, list(range(1, N_ITERS + 1)))
+        bler_name = results.ber_sweep_filename("ldpc_1_2_ber_vs_ebn0_bler", "cnc", "los",
+                                               n_ant, 0.0, x, list(range(1, N_ITERS + 1)))
+        files = sorted(os.listdir(tmp))
+        expected = sorted([name + ".csv", bler_name + ".csv"])
+        rows = ([results.read_from_csv(n, tmp) for n in (name, bler_name)]
+                if files == expected else None)
+    finally:
+        if old is None:
+            os.environ.pop("MIMO_OFDM_TPU_TORCH_RESULTS")
+        else:
+            os.environ["MIMO_OFDM_TPU_TORCH_RESULTS"] = old
+        shutil.rmtree(tmp, ignore_errors=True)
+    ref = np.asarray(results.read_from_csv(CODED_REFERENCE_CSV, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "figs", "csv_results")), float)
+    cols = [int(np.argmin(np.abs(ref[0] - e))) for e in ebn0]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio = (ber / ref[1:, cols]).tolist()
+    line = {"points": list(ebn0), "launches": launches, "seconds": dt, "csv": files,
+            "expected_csv": expected, "ber": ber.tolist(),
+            "bler": None if rows is None else rows[1][1:],
+            "committed_ber": ref[1:, cols].tolist(), "ratio_to_committed": ratio, "card": card}
+    print(json.dumps({"phase": "coded_sweep", **line}), flush=True)
+    if rows is None:
+        raise AssertionError(f"coded sweep: expected {expected}, found {files}")
+    for r in rows:
+        if [len(v) for v in r] != [len(ebn0)] * (N_ITERS + 3) or list(r[0]) != list(ebn0):
+            raise AssertionError(f"coded sweep: CSV layout {[len(v) for v in r]}, expected "
+                                 f"Eb/N0 then {N_ITERS + 2} rows of {len(ebn0)}")
+    bler = np.asarray(rows[1][1:])
+    if (launches != 2 * 3 * (N_ITERS + 2) or not np.all((0 <= ber) & (ber < 0.5))
+            or not np.all((0 <= bler) & (bler <= 1))):
+        raise AssertionError(f"coded sweep: {launches} launches, BER {ber.tolist()}")
+    return line
+
+
+def coded(fp, link, link_ldpc, profiling, results, ber_sweeps, metrics, dev, card: str = "",
+          batch: int = CODED_BATCH, n_ant: int = 64, small: bool = False) -> dict:
+    """Phase 12: the coded link at full width (``n_ant`` and ``small``, the
+    n_fft 256 cut, exist for rehearsals on the CPU)."""
+    snr1, snr5 = (float(metrics.ebn0_to_snr(e, 2048, 2048, 64)) for e in CODED_EBN0_DB)
+    out = {}
+    for alg in ("cnc", "mcnc"):
+        cfg = ber_sweeps.coded_link_config("los", alg, n_ant, 0.0, small)
+        chain = link_ldpc.reference_chain(cfg, 0.5)
+        rf = link_ldpc.make_transport_round_fn(cfg, N_ITERS, batch, chain, ldpc_iters=12,
+                                               ldpc_algorithm="sumprod", device=dev)
+        out[f"coded_ref_{alg}"] = drive_coded(fp, profiling, f"ref_{alg}", rf, N_ITERS,
+                                              chain.a, True, dev, batch, snr1, card)
+    cfg = ber_sweeps.coded_link_config("los", "cnc", n_ant // 4, 0.0, small)
+    chain = link_ldpc.reference_chain(cfg, 1 / 3)
+    rf = link_ldpc.make_transport_inloop_round_fn(cfg, 3, batch, chain, ldpc_iters=12,
+                                                  device=dev)
+    out["coded_inloop"] = drive_coded(fp, profiling, "inloop_cnc", rf, 3, chain.a, True, dev,
+                                      batch, snr1, card)
+    cfg = ber_sweeps.coded_link_config("los", "cnc", n_ant, 0.0, small)
+    code = link_ldpc.code_for_modem(cfg, 0.5)
+    rf = link_ldpc.make_coded_round_fn(cfg, N_ITERS, batch, code, ldpc_iters=25, device=dev)
+    out["coded_ira"] = drive_coded(fp, profiling, "ira_cnc", rf, N_ITERS, code.k, False, dev,
+                                   batch, snr1, card)
+    coded_kernel_vs_plain(fp, link, link_ldpc, ber_sweeps, dev, snr5, n_ant=n_ant, small=small)
+    out["coded_sweep"] = coded_sweep(fp, results, ber_sweeps, dev, batch, card, n_ant, small)
+    return out
+
+
 def timing(fp, ofdm, dev, batch: int, card: str = "", n_fft: int = 4096,
            n_sc: int = 2048) -> dict:
     """Phase 6: kernel, plain and torch.fft chain at the main path's shapes."""
@@ -654,9 +838,9 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mimo_ofdm_tpu_torch.experiments import ber_sweeps
     from mimo_ofdm_tpu_torch.kernels import fused_pa as fp
-    from mimo_ofdm_tpu_torch.models import link, link_mu
+    from mimo_ofdm_tpu_torch.models import link, link_ldpc, link_mu
     from mimo_ofdm_tpu_torch.ops import metrics, ofdm
-    from mimo_ofdm_tpu_torch.utils import config, results
+    from mimo_ofdm_tpu_torch.utils import config, profiling, results
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -687,6 +871,7 @@ def main() -> int:
     paths.update(channel_paths(fp, config, link, dev, args.batch, snr_los, smi))
     paths.update(multiuser(fp, config, link_mu, results, ber_sweeps, dev, args.batch,
                            snr_los, smi))
+    paths.update(coded(fp, link, link_ldpc, profiling, results, ber_sweeps, metrics, dev, smi))
 
     tx = times["tx"]
     launches = sum(p["launches"] for p in paths.values())

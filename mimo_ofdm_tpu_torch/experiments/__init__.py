@@ -6,8 +6,10 @@ configs, and the CLI runs them by name:
 
 Only the ported experiments are registered: the BER sweeps of
 ``experiments/ber_sweeps.py`` (vs Eb/N0, IBO and antenna count, the
-fixed-BER grid, the AWGN, CSI-error and TOI variants, and the multi-user
-sweep ``multiuser_ber``).
+fixed-BER grid, the AWGN, CSI-error and TOI variants, the multi-user
+sweep ``multiuser_ber``, and the LDPC-coded sweeps ``ldpc_coded_ber``,
+``transport_coded_ber``, ``ldpc_ref_ber``, ``ldpc_in_loop_ber``,
+``nvadj_ldpc_ber`` and ``ldpc_table_sensitivity``).
 """
 
 from __future__ import annotations

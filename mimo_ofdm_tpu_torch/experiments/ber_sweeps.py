@@ -1,6 +1,9 @@
 """BER sweep experiments (port of ``mimo_ofdm_tpu/experiments/ber_sweeps.py``):
 vs Eb/N0, vs IBO, vs antenna count, the fixed-BER required-Eb/N0 grid,
-the AWGN, CSI-error and TOI variants, and the multi-user sweep.
+the AWGN, CSI-error and TOI variants, the multi-user sweep, and the six
+LDPC-coded sweeps (raw IRA codeword, transport chain, reference parity,
+in-loop decoding, noise-variance-adjusted LLRs, surrogate-table
+sensitivity).
 
 Same arguments, defaults and CSV files as the JAX package's, plus
 ``device`` (``cuda`` unless ``"cpu"``). A JAX key ``fold_in(key(seed), i)``
@@ -482,3 +485,261 @@ def multiuser_ber(precoding="mrt", algorithm="cnc", channel="los", n_ant=64,
             data.extend(np.asarray(r) for r in ber[u])
         results.save_to_csv(data, fname)
     return ebn0, ber
+
+
+def coded_link_config(channel: str, algorithm: str, n_ant: int, ibo_db: float,
+                      small: bool) -> LinkConfig:
+    """The coded experiments' link: 64-QAM, MRT, soft limiter, the
+    canonical modem or its n_fft 256 cut."""
+    modem = ModemConfig(constel_size=64, n_fft=256 if small else 4096,
+                        n_sub_carr=128 if small else 2048, cp_len=16 if small else 128)
+    return LinkConfig(modem=modem, array=ArrayConfig(n_elements=n_ant),
+                      channel=ChannelConfig(model=channel), precoding="mrt",
+                      pa=PaConfig(model="softlim", ibo_db=ibo_db),
+                      rx=RxConfig(algorithm=algorithm))
+
+
+@register("ldpc_coded_ber")
+def ldpc_coded_ber(channel="los", algorithm="cnc", n_ant=64, ibo_db=0.0,
+                   n_iters=8, code_rate=0.5, ldpc_iters=25, ebn0_min=5.0,
+                   ebn0_max=15.0, ebn0_step=1.0, n_err_min=10_000,
+                   bits_sent_max=5_000_000, batch=16, seed=0, save_csv=True,
+                   verbose=True, small=False, family="nr", device=None):
+    """Coded BER vs Eb/N0 with CNC/MCNC before the LDPC decoder
+    (``reference/main_cnc_mcnc_w_ldpc/main_mp_ldpc_cnc_ber_vs_ebn0.py``).
+    ``family="nr"``: the 5G-NR code through the rate-matched transport
+    chain (:func:`transport_coded_ber`); ``family="ira"``: the raw IRA
+    codeword filling the frame (no CRC or rate matching), through the
+    Monte-Carlo driver. Returns the :class:`SweepResult` (IRA) or
+    ``(ebn0, ber, bler)`` (NR)."""
+    from mimo_ofdm_tpu_torch.models.link_ldpc import code_for_modem, make_coded_round_fn
+    if family == "nr":
+        return transport_coded_ber(
+            channel=channel, algorithm=algorithm, n_ant=n_ant, ibo_db=ibo_db,
+            n_iters=n_iters, code_rate=code_rate, ldpc_iters=ldpc_iters,
+            exact_payload=True, ebn0_min=ebn0_min, ebn0_max=ebn0_max,
+            ebn0_step=ebn0_step, n_err_min=n_err_min, bits_sent_max=bits_sent_max,
+            batch=batch, seed=seed, save_csv=save_csv, verbose=verbose, small=small,
+            device=device)
+    cfg = coded_link_config(channel, algorithm, n_ant, ibo_db, small)
+    code = code_for_modem(cfg, code_rate=code_rate)
+    round_fn = make_coded_round_fn(cfg, n_iters, batch, code, ldpc_iters=ldpc_iters,
+                                   device=device)
+    ebn0 = np.arange(ebn0_min, ebn0_max + ebn0_step / 2, ebn0_step)
+    snrs = ebn0_to_snr(ebn0, cfg.modem.n_sub_carr, cfg.modem.n_sub_carr,
+                       cfg.modem.constel_size)
+    res = SweepResult(param_values=ebn0)
+    for i, snr in enumerate(snrs):
+        pt = run_point(round_fn, round_seed(seed, i), float(snr), n_counters=n_iters + 2,
+                       n_bits_per_frame=code.k, batch=batch, n_err_min=n_err_min,
+                       bits_sent_max=bits_sent_max)
+        res.points.append(pt)
+        if verbose:
+            print(f"Eb/N0={ebn0[i]:5.1f}  coded BER={np.array2string(pt.ber, precision=4)}")
+    if save_csv:
+        fname = results.ber_sweep_filename(
+            f"ldpc_r{code_rate:.2f}_ber_vs_ebn0", algorithm, channel, n_ant, ibo_db,
+            ebn0, list(range(1, n_iters + 1)))
+        results.save_ber_sweep(ebn0, res.ber_matrix, fname)
+    return res
+
+
+@register("transport_coded_ber")
+def transport_coded_ber(channel="los", algorithm="cnc", n_ant=64, ibo_db=0.0,
+                        n_iters=8, code_rate=0.5, n_blocks=4, rv=0,
+                        ldpc_iters=25, ldpc_algorithm="minsum",
+                        serial_decode=False, in_loop=False, nv_adjust=False,
+                        exact_payload=False, csv_kind=None,
+                        ebn0_min=5.0, ebn0_max=15.0, ebn0_step=1.0,
+                        n_err_min=10_000, bits_sent_max=5_000_000, batch=16,
+                        seed=0, save_csv=True, verbose=True, small=False, device=None):
+    """Coded BER and BLER vs Eb/N0 through the full transport chain
+    (CRC24A, segmentation + CRC24B, 5G-NR BG1/BG2 LDPC, rate matching) with
+    CNC/MCNC before (or, ``in_loop``, inside) the decoder: the native
+    equivalent of ``reference/main_cnc_mcnc_w_ldpc/mp_ldpc_model.py``'s
+    MATLAB DL-SCH pipeline. ``exact_payload`` sizes the transport block as
+    ``A = rate * n_bits_per_ofdm_sym`` (``mp_ldpc_model.py:99-100``);
+    ``csv_kind`` overrides the CSV name prefix. Each point runs rounds under
+    ``round_seed(seed, i)`` until every counter has ``n_err_min`` errors or
+    ``bits_sent_max`` bits; a round's counters reach the host in one fetch.
+    Returns ``(ebn0, ber, bler)``, each row ``[clean, it0..itN]``."""
+    import time
+    from mimo_ofdm_tpu_torch.models.link_ldpc import (make_transport_inloop_round_fn,
+                                                      make_transport_round_fn,
+                                                      reference_chain,
+                                                      transport_chain_for_modem)
+    cfg = coded_link_config(channel, algorithm, n_ant, ibo_db, small)
+    modem = cfg.modem
+    if exact_payload:
+        chain = reference_chain(cfg, code_rate, rv)
+    else:
+        chain = transport_chain_for_modem(cfg, code_rate=code_rate, n_blocks=n_blocks, rv=rv)
+    if verbose:
+        print(f"transport chain: A={chain.a} C={chain.c} K'={chain.k_prime} "
+              f"filler={chain.n_filler} E_cb={chain.e_cb} rate={chain.coded_rate:.3f}")
+    if in_loop:
+        if serial_decode or nv_adjust:
+            raise ValueError("in_loop=True supports neither serial_decode nor nv_adjust; "
+                             "drop those flags or use in_loop=False")
+        round_fn = make_transport_inloop_round_fn(cfg, n_iters, batch, chain,
+                                                  ldpc_iters=ldpc_iters,
+                                                  ldpc_algorithm=ldpc_algorithm, device=device)
+    else:
+        round_fn = make_transport_round_fn(cfg, n_iters, batch, chain, ldpc_iters=ldpc_iters,
+                                           ldpc_algorithm=ldpc_algorithm,
+                                           serial_decode=int(serial_decode),
+                                           nv_adjust=nv_adjust, device=device)
+    ebn0 = np.arange(ebn0_min, ebn0_max + ebn0_step / 2, ebn0_step)
+    snrs = ebn0_to_snr(ebn0, modem.n_sub_carr, modem.n_sub_carr, modem.constel_size)
+    n_counters = n_iters + 2
+    ber = np.zeros((n_counters, len(ebn0)))
+    bler = np.zeros((n_counters, len(ebn0)))
+    for i, snr in enumerate(snrs):
+        key = round_seed(seed, i)
+        errs = np.zeros(n_counters, np.int64)
+        blks = np.zeros(n_counters, np.int64)
+        bits = np.zeros(n_counters, np.int64)
+        frames = np.zeros(n_counters, np.int64)
+        rounds = 0
+        t0 = time.perf_counter()
+        while True:
+            active = (errs < n_err_min) & (bits < bits_sent_max)
+            if not active.any() or rounds >= 100_000:
+                break
+            c = round_fn(key, rounds, float(snr)).cpu().numpy().astype(np.int64)
+            errs += np.where(active, c[:n_counters], 0)
+            blks += np.where(active, c[n_counters:], 0)
+            bits += np.where(active, batch * chain.a, 0)
+            frames += np.where(active, batch, 0)
+            rounds += 1
+        ber[:, i] = errs / np.maximum(bits, 1)
+        bler[:, i] = blks / np.maximum(frames, 1)
+        if verbose:
+            print(f"Eb/N0={ebn0[i]:5.1f}  rounds={rounds:4d} "
+                  f"({time.perf_counter() - t0:.1f}s)  coded BER="
+                  f"{np.array2string(ber[:, i], precision=4)}  BLER="
+                  f"{np.array2string(bler[:, i], precision=3)}")
+    if save_csv:
+        kind = csv_kind or f"transport_r{code_rate:.2f}_C{chain.c}_rv{rv}"
+        rest = (algorithm, channel, n_ant, ibo_db, ebn0, list(range(1, n_iters + 1)))
+        results.save_ber_sweep(ebn0, ber, results.ber_sweep_filename(kind, *rest))
+        results.save_ber_sweep(ebn0, bler, results.ber_sweep_filename(kind + "_bler", *rest))
+    return ebn0, ber, bler
+
+
+def _rate(code_rate_str: str) -> tuple[str, str, float]:
+    num, den = code_rate_str.split("/")
+    return num, den, float(num) / float(den)
+
+
+@register("ldpc_ref_ber")
+def ldpc_ref_ber(code_rate_str="1/2", channel="los", algorithm="cnc",
+                 n_ant=16, ibo_db=0.0, n_iters=3, ldpc_iters=12,
+                 ebn0_min=-5.0, ebn0_max=15.0, ebn0_step=2.0,
+                 n_err_min=20_000, bits_sent_max=10_000_000, batch=16,
+                 serial_decode=False, seed=0, save_csv=True, verbose=True,
+                 small=False, device=None):
+    """Reference-parity 5G-NR coded BER vs Eb/N0, the configuration of
+    ``reference/main_cnc_mcnc_w_ldpc/main_mp_ldpc_cnc_ber_vs_ebn0.py``:
+    payload ``A = rate * n_bits_per_ofdm_sym`` plus the TB CRC, 38.212
+    base-graph selection, 12 sum-product iterations
+    (``mp_ldpc_model.py:174-175``), rows clean + CNC passes 0..n_iters,
+    under the reference's name ``ldpc_<num>_<den>_ber_vs_ebn0_...``.
+    Returns ``(ebn0, ber)``."""
+    num, den, rate = _rate(code_rate_str)
+    ebn0, ber, _ = transport_coded_ber(
+        channel=channel, algorithm=algorithm, n_ant=n_ant, ibo_db=ibo_db,
+        n_iters=n_iters, code_rate=rate, rv=0, ldpc_iters=ldpc_iters,
+        ldpc_algorithm="sumprod", exact_payload=True, serial_decode=serial_decode,
+        csv_kind=f"ldpc_{num}_{den}_ber_vs_ebn0", ebn0_min=ebn0_min, ebn0_max=ebn0_max,
+        ebn0_step=ebn0_step, n_err_min=n_err_min, bits_sent_max=bits_sent_max,
+        batch=batch, seed=seed, save_csv=save_csv, verbose=verbose, small=small,
+        device=device)
+    return ebn0, ber
+
+
+@register("ldpc_in_loop_ber")
+def ldpc_in_loop_ber(code_rate_str="1/3", channel="los", algorithm="cnc",
+                     n_ant=16, ibo_db=0.0, n_iters=3, ldpc_iters=12,
+                     ebn0_min=-5.0, ebn0_max=4.0, ebn0_step=1.0,
+                     n_err_min=20_000, bits_sent_max=10_000_000, batch=16,
+                     seed=0, save_csv=True, verbose=True, small=False, device=None):
+    """LDPC-in-the-loop CNC/MCNC coded BER vs Eb/N0 (the committed
+    ``ldpc_in_loop_ber_vs_ebn0_{cnc,mcnc}_los_nant16_*`` results; see
+    :func:`mimo_ofdm_tpu_torch.models.link_ldpc.make_transport_inloop_frame_fn`).
+    Defaults are the committed files' grid and the configuration the JAX
+    package pinned for them: rate 1/3, 12 sum-product iterations.
+    Returns ``(ebn0, ber)``."""
+    _, _, rate = _rate(code_rate_str)
+    ebn0, ber, _ = transport_coded_ber(
+        channel=channel, algorithm=algorithm, n_ant=n_ant, ibo_db=ibo_db,
+        n_iters=n_iters, code_rate=rate, rv=0, ldpc_iters=ldpc_iters,
+        ldpc_algorithm="sumprod", exact_payload=True, in_loop=True,
+        csv_kind="ldpc_in_loop_ber_vs_ebn0", ebn0_min=ebn0_min, ebn0_max=ebn0_max,
+        ebn0_step=ebn0_step, n_err_min=n_err_min, bits_sent_max=bits_sent_max,
+        batch=batch, seed=seed, save_csv=save_csv, verbose=verbose, small=small,
+        device=device)
+    return ebn0, ber
+
+
+@register("nvadj_ldpc_ber")
+def nvadj_ldpc_ber(code_rate_str="3/4", channel="tdl_3gpp",
+                   algorithm="cnc", n_ant=16, ibo_db=0.0, n_iters=3,
+                   ldpc_iters=12, ebn0_min=-5.0, ebn0_max=15.0,
+                   ebn0_step=2.0, n_err_min=20_000,
+                   bits_sent_max=10_000_000, batch=16, serial_decode=16,
+                   seed=0, save_csv=True, verbose=True, small=False, device=None):
+    """Noise-variance-adjusted LLR coded BER (the committed
+    ``nvadj_ldpc_3_4_ber_vs_ebn0_{cnc,mcnc}_*_nant16_*`` results): each
+    pass's demapper variance is its measured residual error power, floored
+    by the thermal term (:func:`mimo_ofdm_tpu_torch.models.link_ldpc.decoder_llr_nvadj`).
+    The default channel is the TDL substitute of the committed files'
+    Quadriga arm. Returns ``(ebn0, ber)``."""
+    num, den, rate = _rate(code_rate_str)
+    ebn0, ber, _ = transport_coded_ber(
+        channel=channel, algorithm=algorithm, n_ant=n_ant, ibo_db=ibo_db,
+        n_iters=n_iters, code_rate=rate, rv=0, ldpc_iters=ldpc_iters,
+        ldpc_algorithm="sumprod", exact_payload=True, nv_adjust=True,
+        serial_decode=serial_decode, csv_kind=f"nvadj_ldpc_{num}_{den}_ber_vs_ebn0",
+        ebn0_min=ebn0_min, ebn0_max=ebn0_max, ebn0_step=ebn0_step, n_err_min=n_err_min,
+        bits_sent_max=bits_sent_max, batch=batch, seed=seed, save_csv=save_csv,
+        verbose=verbose, small=small, device=device)
+    return ebn0, ber
+
+
+@register("ldpc_table_sensitivity")
+def ldpc_table_sensitivity(draws=(0, 1, 2), code_rate_str="1/2",
+                           channel="los", algorithm="cnc", n_ant=16,
+                           n_iters=3, ldpc_iters=12, ebn0_min=5.0,
+                           ebn0_max=15.0, ebn0_step=2.0, n_err_min=20_000,
+                           bits_sent_max=10_000_000, batch=16, seed=0,
+                           verbose=True, small=False, device=None):
+    """The NR-LDPC surrogate tables' effect apart from the decoder's: the
+    reference-parity coded sweep on each surrogate base-graph draw in
+    ``draws`` (sum-product, seed ``seed + draw``), plus min-sum on
+    ``draws[0]``. Returns ``{label: (ebn0, ber)}``; the draw is reset to 0
+    on the way out."""
+    from mimo_ofdm_tpu_torch.ops import nr_ldpc
+    _, _, rate = _rate(code_rate_str)
+    common = dict(channel=channel, algorithm=algorithm, n_ant=n_ant, n_iters=n_iters,
+                  code_rate=rate, rv=0, ldpc_iters=ldpc_iters, exact_payload=True,
+                  ebn0_min=ebn0_min, ebn0_max=ebn0_max, ebn0_step=ebn0_step,
+                  n_err_min=n_err_min, bits_sent_max=bits_sent_max, batch=batch,
+                  save_csv=False, verbose=verbose, small=small, device=device)
+    out = {}
+    try:
+        for d in draws:
+            nr_ldpc.set_surrogate_draw(d)
+            if verbose:
+                print(f"--- surrogate draw {d} (sumprod) ---")
+            ebn0, ber, _ = transport_coded_ber(ldpc_algorithm="sumprod", seed=seed + d,
+                                               **common)
+            out[f"draw{d}_sumprod"] = (ebn0, ber)
+        nr_ldpc.set_surrogate_draw(draws[0])
+        if verbose:
+            print(f"--- surrogate draw {draws[0]} (minsum) ---")
+        ebn0, ber, _ = transport_coded_ber(ldpc_algorithm="minsum", seed=seed, **common)
+        out[f"draw{draws[0]}_minsum"] = (ebn0, ber)
+    finally:
+        nr_ldpc.set_surrogate_draw(0)
+    return out

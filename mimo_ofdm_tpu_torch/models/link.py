@@ -93,13 +93,16 @@ class FrameDraws(NamedTuple):
     @staticmethod
     def draw(cfg: LinkConfig, batch: int, generator: torch.Generator,
              fade_dtype: torch.dtype = torch.float32,
-             reroll: bool = True) -> "FrameDraws":
+             reroll: bool = True, n_bits: int | None = None) -> "FrameDraws":
         """Draw ``batch`` frames' randoms from ``generator`` on its device,
         only those the config uses; the fade directly in ``fade_dtype``
-        (the plane storage dtype)."""
+        (the plane storage dtype). ``n_bits`` payload bits a run (default:
+        the frame's ``n_bits_per_ofdm_sym``; a coded frame's payload is
+        shorter)."""
         dev = generator.device
         n_ant, n_sc = cfg.array.n_elements, cfg.modem.n_sub_carr
-        n_bits = cfg.modem.n_bits_per_ofdm_sym
+        if n_bits is None:
+            n_bits = cfg.modem.n_bits_per_ofdm_sym
         model = cfg.channel.model
 
         def normals(*shape, dtype=torch.float32):

@@ -52,6 +52,23 @@ def cnc_iterate(rx_sc: torch.Tensor, n_iters: int, constel_size: int,
     return torch.stack(bits_all), torch.stack(sym_all)
 
 
+def cnc_iterate_soft(rx_sc: torch.Tensor, n_iters: int, constel_size: int,
+                     replica_fn: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """The CNC loop returning each pass's *corrected* (distortion-subtracted,
+    pre-detection) signal ``[n_iters+1, ..., n_sc]``, the symbols the coded
+    link demaps softly (``reference/corrector.py:83-84`` with
+    ``return_bits=False``). The replica runs on every pass, the last one
+    too, as in :func:`cnc_iterate`."""
+    d_est = torch.zeros_like(rx_sc)
+    corr_all = []
+    for _ in range(n_iters + 1):
+        corr = rx_sc - d_est
+        det_sym, _ = qam.detect_symbols_and_bits(corr, constel_size, dtype=rx_sc.dtype)
+        corr_all.append(corr)
+        d_est = replica_fn(det_sym) - det_sym
+    return torch.stack(corr_all)
+
+
 def make_cnc_replica(constel_size: int, n_fft: int, n_sc: int, ibo_db: float,
                      pa_model: str = "softlim", alpha=None,
                      rapp_p: float = 1.1, use_mxu_fft: bool = False,

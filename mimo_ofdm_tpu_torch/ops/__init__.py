@@ -1,2 +1,3 @@
-"""Numeric layer: bits, QAM, OFDM framing, PA models, noise and the fused
-IFFT -> PA -> FFT chain."""
+"""Numeric layer: bits, QAM (hard and soft detection), OFDM framing, PA
+models, noise, the fused IFFT -> PA -> FFT chain, and the coded link's
+QC-LDPC / 5G-NR codecs and transport chain."""

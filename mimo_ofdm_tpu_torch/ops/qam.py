@@ -110,3 +110,39 @@ def detect_symbols_and_bits(symbols: torch.Tensor, constel_size: int,
     if not (isinstance(alpha, float) and alpha == 1.0):
         sym = sym * alpha
     return sym, ints_to_bits(idx, bits_per_symbol(constel_size))
+
+
+@functools.lru_cache(maxsize=None)
+def _bit_halves(constel_size: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(ones, zeros)``, each ``[bps, M/2]``: the bit patterns whose bit
+    ``k`` (MSB first) is 1, and those where it is 0, in increasing order."""
+    bps = bits_per_symbol(constel_size)
+    b_idx = np.arange(constel_size)
+    mask = ((b_idx[None, :] >> (bps - 1 - np.arange(bps)[:, None])) & 1).astype(bool)
+    ones = np.stack([b_idx[m] for m in mask])
+    zeros = np.stack([b_idx[~m] for m in mask])
+    return (torch.as_tensor(ones, device=device), torch.as_tensor(zeros, device=device))
+
+
+def soft_llr(symbols: torch.Tensor, constel_size: int, noise_var,
+             alpha: torch.Tensor | float = 1.0) -> torch.Tensor:
+    """Exact per-bit log-likelihood ratios, MSB-first, positive = bit 1
+    (``mimo_ofdm_tpu/ops/qam.py:149-177``, ``reference/modulation.py:30-59``):
+    ``llr[k] = log sum_{b: bit k = 1} e^{-|y - s_b|^2 / nv} - log sum_{b: bit
+    k = 0} e^{-|y - s_b|^2 / nv}``, each through log-sum-exp.
+
+    JAX masks a ``[..., n_sym, bps, M]`` tensor; here each bit gathers the
+    two ``M/2``-point halves, ``[..., n_sym, bps, M/2]``: the same terms in
+    the same sets, in a quarter of the memory. ``noise_var`` (a Python
+    float or a tensor) broadcasts against ``symbols``; returns ``[...,
+    n_sym * bps]`` float32."""
+    constellation = qam_constellation(constel_size, symbols.device)
+    if not (isinstance(alpha, float) and alpha == 1.0):
+        constellation = constellation * alpha
+    if isinstance(noise_var, torch.Tensor):
+        noise_var = noise_var[..., None]
+    neg_d2 = -(torch.abs(symbols[..., None] - constellation) ** 2) / noise_var
+    ones, zeros = _bit_halves(constel_size, symbols.device)
+    num = torch.logsumexp(neg_d2[..., ones], dim=-1)          # [..., n_sym, bps]
+    den = torch.logsumexp(neg_d2[..., zeros], dim=-1)
+    return (num - den).flatten(-2)

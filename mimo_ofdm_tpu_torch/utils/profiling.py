@@ -2,29 +2,39 @@
 Monte-Carlo rounds on the card: bench.py's Rayleigh frame, the repo's
 canonical configuration (LOS, RX rerolled per frame), its two-path
 variant, the canonical LOS on the complex64 branch (f32 chain), the TR
-38.901 TDL and GSCM (uma_los) channels, and the multi-user link of
-``multiuser_ber`` (2 users, MRT; CNC and MCNC-MU).
+38.901 TDL and GSCM (uma_los) channels, the multi-user link of
+``multiuser_ber`` (2 users, MRT; CNC and MCNC-MU), and the coded frames
+(``coded``: ``ldpc_ref_ber`` at 64 antennas, rate 1/2, 8 iterations, 12
+sum-product iterations; ``ldpc_in_loop_ber``'s defaults; the raw IRA
+codeword of ``ldpc_coded_ber(family="ira")``).
 
-    python -m mimo_ofdm_tpu_torch.utils.profiling [--batch 128] [--rounds 3] [--frames tdl,mu]
+    python -m mimo_ofdm_tpu_torch.utils.profiling [--batch 128] [--rounds 3] [--frames tdl,mu,coded]
 
 Prints one JSON line per frame and arm with the wall time per round, the
 device-busy time per round (sum of kernel durations), the idle share, and
-the kernels that take the most device time, grouped by name. Needs a CUDA
-device.
+the kernels that take the most device time, grouped by name; for the coded
+frames the device time by op class (decode, soft demap, chain, rest), the
+kernel launches and the peak device memory of a round instead. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import json
+import os
 import subprocess
+import tempfile
 import time
 from collections import defaultdict
 
 import torch
 
-from mimo_ofdm_tpu_torch.models import link, link_mu
+from mimo_ofdm_tpu_torch.models import link, link_ldpc, link_mu, transmit
+from mimo_ofdm_tpu_torch.ops import ldpc, qam, transport
 from mimo_ofdm_tpu_torch.utils import config
 
 
@@ -82,6 +92,117 @@ def profile_round(cfg: config.LinkConfig, n_iters: int, batch: int,
     }
 
 
+CODED_BATCH = 16     # the coded experiments' default frames a round
+
+# the coded round's op classes: the functions whose kernels each one owns
+CODED_CLASSES = {"decode": ((transport, "transport_decode"), (ldpc, "decode")),
+                 "soft_demap": ((qam, "soft_llr"),),
+                 "chain": ((transmit, "ifft_pa_fft_sc"),)}
+
+
+@contextlib.contextmanager
+def labelled(classes=CODED_CLASSES):
+    """Run each class's functions inside ``record_function(class)`` while
+    the block runs (the callers look them up on their modules)."""
+    saved = []
+
+    def wrap(label, fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    try:
+        for label, targets in classes.items():
+            for mod, name in targets:
+                fn = getattr(mod, name)
+                saved.append((mod, name, fn))
+                setattr(mod, name, wrap(label, fn))
+        yield
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def device_ms_by_class(trace: dict, labels) -> tuple[dict, int]:
+    """Device time (ms) by op class from a Chrome trace of the profiler, and
+    the number of kernels. A kernel belongs to the innermost labelled range
+    that holds the host call that launched it (matched by correlation id),
+    else to ``rest``; memory copies and sets count as device time too."""
+    launched_at, spans, work = {}, [], []
+    for e in trace["traceEvents"]:
+        cat, args = e.get("cat", ""), e.get("args", {})
+        if cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launched_at[args["correlation"]] = e["ts"]
+        elif cat == "user_annotation" and e.get("name") in labels:
+            spans.append((e["ts"], e["ts"] + e["dur"], e["name"]))
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            work.append((e["dur"], args.get("correlation"), cat == "kernel"))
+    out = dict.fromkeys([*labels, "rest"], 0.0)
+    for dur, corr, _ in work:
+        ts = launched_at.get(corr)
+        inside = [sp for sp in spans if ts is not None and sp[0] <= ts <= sp[1]]
+        out[min(inside, key=lambda sp: sp[1] - sp[0])[2] if inside else "rest"] += dur
+    return {k: v / 1e3 for k, v in out.items()}, sum(k for *_, k in work)
+
+
+def profile_coded_round(round_fn, rounds: int, snr_db: float) -> dict:
+    """Profile ``rounds`` coded rounds after a warm-up round: wall and
+    device-busy ms a round, the idle share, device ms a round by op class
+    (:data:`CODED_CLASSES`), kernel launches a round, and the peak device
+    memory of one round."""
+    round_fn(1, 1000, snr_db)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    round_fn(1, 1001, snr_db)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with labelled(), torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(rounds):
+            round_fn(1, i, snr_db)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            by_class, n_kernels = device_ms_by_class(json.load(f), CODED_CLASSES)
+    finally:
+        os.remove(path)
+    busy = sum(by_class.values())
+    return {"rounds": rounds, "wall_ms_per_round": wall * 1e3 / rounds,
+            "device_busy_ms_per_round": busy / rounds,
+            "idle_share": 1.0 - busy / 1e3 / wall,
+            "device_ms_per_round_by_class": {k: v / rounds for k, v in by_class.items()},
+            "kernel_launches_per_round": n_kernels / rounds,
+            "peak_memory_bytes": peak}
+
+
+def coded_frames(batch: int) -> dict:
+    """The coded rounds of ``--frames coded`` at Eb/N0 1 dB, by name:
+    ``(round_fn, SNR dB)``."""
+    from mimo_ofdm_tpu_torch.experiments.ber_sweeps import coded_link_config
+    from mimo_ofdm_tpu_torch.ops.metrics import ebn0_to_snr
+    snr = float(ebn0_to_snr(1.0, 2048, 2048, 64))
+    out = {}
+    for alg in ("cnc", "mcnc"):
+        cfg = coded_link_config("los", alg, 64, 0.0, small=False)
+        out[f"coded_ref_{alg}"] = link_ldpc.make_transport_round_fn(
+            cfg, 8, batch, link_ldpc.reference_chain(cfg, 0.5), ldpc_iters=12,
+            ldpc_algorithm="sumprod")
+    cfg = coded_link_config("los", "cnc", 16, 0.0, small=False)
+    out["coded_inloop_cnc"] = link_ldpc.make_transport_inloop_round_fn(
+        cfg, 3, batch, link_ldpc.reference_chain(cfg, 1 / 3), ldpc_iters=12)
+    cfg = coded_link_config("los", "cnc", 64, 0.0, small=False)
+    out["coded_ira_cnc"] = link_ldpc.make_coded_round_fn(
+        cfg, 8, batch, link_ldpc.code_for_modem(cfg, 0.5), ldpc_iters=25)
+    return {k: (v, snr) for k, v in out.items()}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=128)
@@ -106,8 +227,14 @@ def main() -> None:
               "gscm": (canonical.replace(channel=config.ChannelConfig(model="gscm")),
                        su_algs),
               "mu": (mu, mu_algs)}
-    names = args.frames.split(",") if args.frames else list(frames)
+    names = args.frames.split(",") if args.frames else [*frames, "coded"]
     for name in names:
+        if name == "coded":
+            for arm, (round_fn, snr) in coded_frames(CODED_BATCH).items():
+                res = profile_coded_round(round_fn, args.rounds, snr)
+                print(json.dumps({"card": card(), "frame": arm, "batch": CODED_BATCH,
+                                  **res}), flush=True)
+            continue
         base, algs = frames[name]
         for alg in algs:
             cfg = base.replace(rx=dataclasses.replace(base.rx, algorithm=alg))

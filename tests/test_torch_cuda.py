@@ -1,5 +1,6 @@
 """The fused_pa CUDA kernel against its plain PyTorch version, on the card,
-alone and inside the single- and multi-user frames.
+alone and inside the single-user, multi-user and coded frames; the LDPC
+decoder and the transport encoder on the card against the CPU.
 
 Marked ``gpu``; every test takes the ``cuda`` fixture, which skips when
 there is no card (decided at run time, never at import, so that every test
@@ -284,3 +285,101 @@ def test_rounds_never_wait_for_the_device(cuda, kind):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert out.dtype == torch.int32
+
+
+# --- the coded link ----------------------------------------------------------
+
+def _coded_cfg(alg="cnc", storage="bfloat16"):
+    return config.LinkConfig(
+        modem=config.ModemConfig(n_fft=1024, n_sub_carr=512),
+        array=config.ArrayConfig(n_elements=8), rx=config.RxConfig(algorithm=alg),
+        mxu_fft_storage=storage)
+
+
+@pytest.mark.parametrize("alg", ["minsum", "sumprod"])
+def test_ldpc_decode_cuda_matches_cpu(cuda, alg):
+    """The decoder on the card against the same call on the CPU, on one LLR
+    batch of the reference's BG1 Zc 288 code at a waterfall SNR: min-sum
+    gives equal bits; sum-product equal bits or error totals within 5%
+    (tanh and log differ by an ulp between the two devices)."""
+    from mimo_ofdm_tpu_torch.ops import ldpc, nr_ldpc
+    code = nr_ldpc.make_nr_code(1, 288)
+    info = torch.from_numpy(np.random.default_rng(1).integers(0, 2, (8, code.k)).astype(np.int8))
+    cw = nr_ldpc.encode(code, info).numpy()
+    sigma = 1.15
+    y = (1.0 - 2.0 * cw) + sigma * np.random.default_rng(2).normal(size=cw.shape)
+    llr = torch.from_numpy((2.0 * y / sigma ** 2).astype(np.float32))
+    cpu = ldpc.decode(code, llr, n_iters=12, algorithm=alg)
+    gpu = ldpc.decode(code, llr.to(cuda), n_iters=12, algorithm=alg).cpu()
+    diff = int((gpu != cpu).sum())
+    if alg == "minsum" or diff == 0:
+        assert diff == 0
+    else:
+        e_cpu, e_gpu = int((cpu != info).sum()), int((gpu != info).sum())
+        assert abs(e_gpu - e_cpu) <= 0.05 * max(e_cpu, 100), (diff, e_cpu, e_gpu)
+
+
+def test_transport_encode_cuda_equals_cpu(cuda):
+    """The full-width reference chain (A 6144, BG1 Zc 288) and a segmented,
+    repeating IRA chain encode to the same bits on both devices."""
+    from mimo_ofdm_tpu_torch.models import link_ldpc
+    from mimo_ofdm_tpu_torch.ops import ldpc, transport
+    full = config.LinkConfig(modem=config.ModemConfig())
+    chains = [link_ldpc.reference_chain(full, 0.5),
+              transport.make_transport_chain(ldpc.make_default_code(12, 12, 16),
+                                             e_total=768, target_rate=0.25)]
+    for chain in chains:
+        pay = torch.from_numpy(np.random.default_rng(chain.a).integers(
+            0, 2, (4, chain.a)).astype(np.int8))
+        cpu = transport.transport_encode(chain, pay)
+        assert torch.equal(transport.transport_encode(chain, pay.to(cuda)).cpu(), cpu)
+        llr = (1.0 - 2.0 * cpu.float()) * 3.0
+        rx, ok = transport.transport_decode(chain, llr.to(cuda), n_iters=4)
+        assert torch.equal(rx.cpu(), pay) and bool(ok.all())
+
+
+@pytest.mark.parametrize("kind", ["transport", "inloop", "ira"])
+def test_coded_round_never_waits_for_the_device(cuda, kind):
+    """After a warm-up round (kernel build, tables on the device), a coded
+    round makes no call that synchronizes with the device, and launches the
+    kernel once for the TX and once per replica pass."""
+    from mimo_ofdm_tpu_torch.models import link_ldpc
+    cfg = _coded_cfg("mcnc")
+    if kind == "ira":
+        round_fn = link_ldpc.make_coded_round_fn(cfg, 2, 4, ldpc_iters=4, device=cuda)
+    else:
+        chain = link_ldpc.reference_chain(cfg, 0.5)
+        make = (link_ldpc.make_transport_round_fn if kind == "transport"
+                else link_ldpc.make_transport_inloop_round_fn)
+        round_fn = make(cfg, 2, 4, chain, ldpc_iters=4, device=cuda)
+    round_fn(0, 0, 14.0)
+    torch.cuda.synchronize()
+    before = KERNEL.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = round_fn(0, 1, 14.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.dtype == torch.int32 and KERNEL.launches - before == 1 + 3
+
+
+def test_coded_frame_kernel_equals_plain(cuda):
+    """A small f32 transport frame through the kernel and through the plain
+    version forced on CUDA tensors gives the same counters."""
+    from mimo_ofdm_tpu_torch.models import link_ldpc
+    for alg in ("cnc", "mcnc"):
+        cfg = _coded_cfg(alg, "float32")
+        chain = link_ldpc.reference_chain(cfg, 0.5)
+        frame = link_ldpc.make_transport_frame_fn(cfg, 2, chain, 6, ldpc_algorithm="sumprod",
+                                                  device=cuda)
+        draws = link.FrameDraws.draw(cfg, 8, torch.Generator(device=cuda).manual_seed(8),
+                                     n_bits=chain.a)
+        out = {}
+        for plain in (False, True):
+            KERNEL.force_plain = plain
+            try:
+                out[plain] = [x.cpu() for x in frame(14.0, draws)]
+            finally:
+                KERNEL.force_plain = False
+        for a, b in zip(out[False], out[True]):
+            assert torch.equal(a, b)
