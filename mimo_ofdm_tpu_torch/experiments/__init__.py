@@ -4,12 +4,22 @@ configs, and the CLI runs them by name:
 
     python -m mimo_ofdm_tpu_torch.experiments <name> [--flag value ...]
 
-Only the ported experiments are registered: the BER sweeps of
-``experiments/ber_sweeps.py`` (vs Eb/N0, IBO and antenna count, the
-fixed-BER grid, the AWGN, CSI-error and TOI variants, the multi-user
-sweep ``multiuser_ber``, and the LDPC-coded sweeps ``ldpc_coded_ber``,
-``transport_coded_ber``, ``ldpc_ref_ber``, ``ldpc_in_loop_ber``,
-``nvadj_ldpc_ber`` and ``ldpc_table_sensitivity``).
+Every experiment of the JAX package is registered but ``weak_scaling``
+(scale-out):
+
+* ``ber_sweeps.py``: the BER sweeps (vs Eb/N0, IBO and antenna count, the
+  fixed-BER grid, the AWGN, CSI-error and TOI variants,
+  ``reproduce_reference_curve``, the multi-user sweep ``multiuser_ber``,
+  and the LDPC-coded sweeps ``ldpc_coded_ber``, ``transport_coded_ber``,
+  ``ldpc_ref_ber``, ``ldpc_in_loop_ber``, ``nvadj_ldpc_ber`` and
+  ``ldpc_table_sensitivity``);
+* ``spatial.py``: beampatterns, radiation patterns with PSDs, MU SINR,
+  EVM and SDR vs IBO, channel and spatial correlation, PSD evaluation and
+  the two-user and n-user SDR studies;
+* ``misc_evals.py``: alpha validation, complexity tables, PA
+  characteristics, channel transfer functions, alpha vs per-antenna power,
+  the precoding/nonlinearity commutation check;
+* ``siso_checks.py``: the SISO SER anchors in AWGN and Rayleigh.
 """
 
 from __future__ import annotations
@@ -24,4 +34,5 @@ def register(name):
     return deco
 
 
-from mimo_ofdm_tpu_torch.experiments import ber_sweeps  # noqa: E402,F401
+from mimo_ofdm_tpu_torch.experiments import (  # noqa: E402,F401
+    ber_sweeps, misc_evals, siso_checks, spatial)

@@ -1,9 +1,9 @@
 """BER sweep experiments (port of ``mimo_ofdm_tpu/experiments/ber_sweeps.py``):
 vs Eb/N0, vs IBO, vs antenna count, the fixed-BER required-Eb/N0 grid,
-the AWGN, CSI-error and TOI variants, the multi-user sweep, and the six
-LDPC-coded sweeps (raw IRA codeword, transport chain, reference parity,
-in-loop decoding, noise-variance-adjusted LLRs, surrogate-table
-sensitivity).
+the AWGN, CSI-error and TOI variants, the reproduction of the committed
+canonical curve, the multi-user sweep, and the six LDPC-coded sweeps
+(raw IRA codeword, transport chain, reference parity, in-loop decoding,
+noise-variance-adjusted LLRs, surrogate-table sensitivity).
 
 Same arguments, defaults and CSV files as the JAX package's, plus
 ``device`` (``cuda`` unless ``"cpu"``). A JAX key ``fold_in(key(seed), i)``
@@ -11,6 +11,9 @@ becomes ``round_seed(seed, i)``.
 """
 
 from __future__ import annotations
+
+import csv
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -423,6 +426,44 @@ def req_ebn0_vs_ibo(channel="two_path", algorithm="cnc", n_ant=64,
             data.extend(ber_grid[j, i, :] for i in range(len(ebn0_arr)))
         results.save_to_csv(data, fname)
     return ibo_arr, ebn0_arr, ber_grid, req
+
+
+# the repo's copy of the reference's committed canonical curve
+REFERENCE_CURVE_CSV = (Path(__file__).resolve().parents[2] / "figs" / "csv_results"
+                       / "ber_vs_ebn0_cnc_los_nant64_ibo0_ebn0_min5_max20_step0.50"
+                         "_niter1_2_3_4_5_6_7_8.csv")
+
+
+@register("reproduce_reference_curve")
+def reproduce_reference_curve(ebn0_points=(10.0, 14.0, 18.0), n_err_min=2000,
+                              bits_sent_max=40_000_000, batch=256, seed=0,
+                              verbose=True, ref_csv=REFERENCE_CURVE_CSV, device=None):
+    """Reproduce the reference's committed canonical BER curve (64-QAM,
+    4096-FFT, 64-antenna ULA, LOS, IBO 0 dB, CNC 0-8; ``canonical_miso_cnc()``
+    unchanged) at ``ebn0_points`` and report the deviation per counter.
+    Returns ``{ebn0: (reference BER [10], measured BER [10], point)}``
+    over the counters ``[clean, it0..it8]``, ``point`` the
+    :class:`PointResult` with the errors, bits and rounds behind the BERs
+    (the JAX package returns the first two)."""
+    cfg, _ = canonical_miso_cnc()
+    round_fn = make_round_fn(cfg, 8, batch, flat=True, device=device)
+    with open(ref_csv, newline="") as f:
+        ref = [np.array([float(x) for x in r]) for r in csv.reader(f)]
+    out = {}
+    for ebn0 in ebn0_points:
+        snr = ebn0_to_snr(ebn0, cfg.modem.n_sub_carr, cfg.modem.n_sub_carr,
+                          cfg.modem.constel_size)
+        pt = run_point(round_fn, round_seed(seed, int(ebn0 * 10)), float(snr),
+                       n_counters=10, n_bits_per_frame=cfg.modem.n_bits_per_ofdm_sym,
+                       batch=batch, n_err_min=n_err_min, bits_sent_max=bits_sent_max)
+        i = int(np.argmin(abs(ref[0] - ebn0)))
+        refv = np.array([ref[r][i] for r in range(1, 11)])
+        out[ebn0] = (refv, pt.ber, pt)
+        if verbose:
+            print(f"Eb/N0 {ebn0}:")
+            print("  ref :", np.array2string(refv, precision=3))
+            print("  ours:", np.array2string(pt.ber, precision=3))
+    return out
 
 
 @register("multiuser_ber")

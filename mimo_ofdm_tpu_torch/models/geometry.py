@@ -57,3 +57,30 @@ def array_positions(geometry: str, n_elements: int, center_freq: float,
     if geometry == "planar":
         return ura_positions(n_rows, n_cols, center_freq, wav_len_spacing, cord_z=cord_z)
     raise ValueError(f"unknown array geometry {geometry!r}")
+
+
+def pts_on_circum(radius: float, n_points: int = 100) -> np.ndarray:
+    """``n_points + 1`` points anticlockwise on a circle
+    (``reference/utilities.py:146-155``)."""
+    ang = 2.0 * np.pi / n_points * np.arange(n_points + 1)
+    return np.stack([np.cos(ang) * radius, np.sin(ang) * radius], axis=1)
+
+
+def pts_on_semicircum(radius: float, n_points: int = 100) -> np.ndarray:
+    """``n_points + 1`` points on a semicircle, angle 0 to pi
+    (``reference/utilities.py:158-167``)."""
+    ang = np.pi / n_points * np.arange(n_points + 1)
+    return np.stack([np.cos(ang) * radius, np.sin(ang) * radius], axis=1)
+
+
+def pts_on_semisphere(radius: float, n_points: int = 100,
+                      center=(0.0, 0.0, 0.0)) -> np.ndarray:
+    """An azimuth x elevation grid of ``int(sqrt(n_points))**2`` points on a
+    semisphere, azimuth outer (``reference/utilities.py:170-192``)."""
+    n = int(np.sqrt(n_points))
+    az = np.deg2rad(np.linspace(0, 180, n, endpoint=True))
+    el = np.deg2rad(np.linspace(0, 180, n, endpoint=True))
+    pts = [(-radius * np.sin(e) * np.cos(a) + center[0],
+            -radius * np.sin(e) * np.sin(a) + center[1],
+            -radius * np.cos(e) + center[2]) for a in az for e in el]
+    return np.asarray(pts)

@@ -1,5 +1,5 @@
 """Transmit side: symbol mapping, precoding and the distorted-TX core
-(port of ``mimo_ofdm_tpu/models/transmit.py:28-193``).
+(port of ``mimo_ofdm_tpu/models/transmit.py``).
 
     bits -> QAM symbols [..., n_sc] -> precode [..., n_ant, n_sc]
             (several users: summed over users before the chain)
@@ -108,13 +108,17 @@ def array_transmit_fd(bits: torch.Tensor, *, constel_size: int, n_fft: int,
                       v: torch.Tensor, pa_model: str = "softlim",
                       sat_power=1.0, rapp_p: float = 1.1, toi_coeff=0.0,
                       skip_dist: bool = False, return_clean: bool = False,
-                      use_mxu_fft: bool = False, mxu_storage: str = "float32"):
+                      sum_users: bool | None = None, use_mxu_fft: bool = False,
+                      mxu_storage: str = "float32"):
     """Array transmit to the frequency domain
     (``reference/antenna_array.py:58-140``): ``[..., n_ant, n_fft]``
     distorted frames, ``(distorted, clean)`` with ``return_clean``, or the
-    clean frames alone with ``skip_dist``."""
+    clean frames alone with ``skip_dist``. ``sum_users`` as in
+    :func:`precode_symbols` (``True``: the multi-user precoder ``v [...,
+    n_ant, n_usr, n_sc]``, users summed; ``False``: ``[..., n_usr, n_ant,
+    n_fft]``)."""
     symbols = modulate_users(bits, constel_size)
-    fd_clean = ofdm.map_subcarriers(precode_symbols(symbols, v), n_fft)
+    fd_clean = ofdm.map_subcarriers(precode_symbols(symbols, v, sum_users), n_fft)
     if skip_dist:
         return fd_clean
     fd_dist = ifft_pa_fft(fd_clean, pa_model, sat_power, rapp_p, toi_coeff,
@@ -136,3 +140,19 @@ def array_transmit_sc(bits: torch.Tensor, *, constel_size: int, n_fft: int,
     return ifft_pa_fft_sc(per_ant_sc, n_fft, pa_model, sat_power, rapp_p,
                           toi_coeff, use_mxu_fft=use_mxu_fft,
                           mxu_storage=mxu_storage)
+
+
+def array_transmit_td(bits: torch.Tensor, *, constel_size: int, n_fft: int,
+                      cp_len: int, v: torch.Tensor, pa_model: str = "softlim",
+                      sat_power=1.0, rapp_p: float = 1.1, toi_coeff=0.0,
+                      skip_dist: bool = False,
+                      sum_users: bool | None = None) -> torch.Tensor:
+    """Time-domain output with the cyclic prefix, ``[..., n_ant, cp_len +
+    n_fft]`` (the reference's ``out_domain_fd=False`` path,
+    ``reference/transceiver.py:123-129,167-174``). The PA runs on the
+    time samples, so this path has no FFT after it and no kernel."""
+    per_ant_sc = precode_symbols(modulate_users(bits, constel_size), v, sum_users)
+    td = torch.fft.ifft(ofdm.map_subcarriers(per_ant_sc, n_fft), dim=-1, norm="ortho")
+    if not skip_dist:
+        td = pa_transfer(td, pa_model, sat_power, rapp_p, toi_coeff)
+    return torch.cat([td[..., td.shape[-1] - cp_len:], td], dim=-1) if cp_len else td

@@ -158,6 +158,13 @@ def canonical_miso_cnc() -> tuple[LinkConfig, SweepConfig]:
     return LinkConfig(), SweepConfig()
 
 
+def siso_awgn() -> LinkConfig:
+    """SISO AWGN sanity config
+    (``reference/main_clipping_noise_cancellation/main_awgn_cnc.py:30-45``)."""
+    return LinkConfig(array=ArrayConfig(n_elements=1),
+                      channel=ChannelConfig(model="awgn"), precoding="none")
+
+
 _SECTIONS = {"modem": ModemConfig, "pa": PaConfig, "array": ArrayConfig,
              "channel": ChannelConfig, "rx": RxConfig}
 

@@ -383,3 +383,62 @@ def test_coded_frame_kernel_equals_plain(cuda):
                 KERNEL.force_plain = False
         for a, b in zip(out[False], out[True]):
             assert torch.equal(a, b)
+
+
+# --- the analysis family -----------------------------------------------------
+
+def test_radiation_pattern_cuda_matches_cpu(cuda):
+    """A Rayleigh radiation-pattern scan (8 antennas, n_fft 1024, 7 points,
+    4 snapshots) on the card against the same scan on the CPU, on draws
+    made on the CPU: powers within 1e-4 of the peak, PSDs within 1e-4 of
+    theirs; the kernel launched once per (point chunk, snapshot chunk) in
+    ``sc`` mode and once per PSD point in ``full`` mode."""
+    from mimo_ofdm_tpu_torch.models import analysis
+    cfg = config.LinkConfig(modem=config.ModemConfig(n_fft=1024, n_sub_carr=512),
+                            array=config.ArrayConfig(n_elements=8),
+                            channel=config.ChannelConfig(model="rayleigh"),
+                            pa=config.PaConfig(ibo_db=3.0))
+    g = torch.Generator().manual_seed(12)
+    draws = analysis.ScanDraws(
+        torch.randint(0, 2, (7, 4, cfg.modem.n_bits_per_ofdm_sym), generator=g,
+                      dtype=torch.int8),
+        torch.randn(7, 2, 8, 1024, generator=g))
+    kw = dict(n_points=6, n_snapshots=4, snap_chunk=2, n_samp_per_seg=256)
+    ref = analysis.radiation_pattern(cfg, draws, device="cpu", **kw)
+    before = KERNEL.launches
+    got = analysis.radiation_pattern(cfg, draws, device=cuda, **kw)
+    assert KERNEL.launches - before == 2 * 2 + 2
+    for a, b in ((got.desired_pow, ref.desired_pow), (got.distortion_pow, ref.distortion_pow)):
+        assert np.max(np.abs(a - b)) < 1e-4 * np.max(b)
+    for ang in ref.psd:
+        for a, b in zip(got.psd[ang][1:], ref.psd[ang][1:]):
+            assert np.max(np.abs(a - b)) < 1e-4 * np.max(b)
+
+
+def test_siso_round_cuda_matches_cpu(cuda):
+    """A SISO CNC frame batch (AWGN and Rayleigh, n_fft 1024, 3 iterations)
+    on the card: counters equal through the kernel and through the plain
+    version forced on CUDA tensors, totals within 2% of the CPU's, and one
+    launch for the clipped run plus one per CNC pass."""
+    from mimo_ofdm_tpu_torch.experiments import siso_checks
+    for rayleigh in (False, True):
+        draws = siso_checks.SisoDraws.draw(16, 512, 6 * 512, rayleigh,
+                                           torch.Generator().manual_seed(13))
+        cpu = siso_checks._make_siso_frame_fn(64, 1024, 512, 0.0, 3, 0.62, rayleigh,
+                                              device="cpu")(22.0, draws)
+        frame = siso_checks._make_siso_frame_fn(64, 1024, 512, 0.0, 3, 0.62, rayleigh,
+                                                device=cuda)
+        out = {}
+        for plain in (False, True):
+            before = KERNEL.launches
+            KERNEL.force_plain = plain
+            try:
+                out[plain] = [x.cpu() for x in frame(22.0, draws)]
+            finally:
+                KERNEL.force_plain = False
+            assert KERNEL.launches - before == (0 if plain else 1 + 4)
+        for a, b in zip(out[False], out[True]):
+            assert torch.equal(a, b)
+        for a, b in zip(out[False], cpu):
+            ta, tb = a.sum(0).double(), b.sum(0).double()
+            assert torch.all((ta - tb).abs() <= 0.02 * torch.clamp(tb, min=100))

@@ -50,8 +50,17 @@ CODED = {"ldpc_coded_ber", "transport_coded_ber", "ldpc_ref_ber", "ldpc_in_loop_
          "nvadj_ldpc_ber", "ldpc_table_sensitivity"}
 
 
+# the analysis family, held against JAX in tests/test_torch_experiments_{analysis,scans,spatial}.py
+ANALYSIS = {"reproduce_reference_curve", "beampattern", "mrt_radiation_pattern",
+            "mu_radiation_pattern", "mu_sinr", "evm_vs_ibo", "sdr_vs_ibo", "mu_beampattern",
+            "channel_corr", "spatial_corr", "psd_eval", "mu_sdr_vs_angle", "mu_sdr_vs_nusers",
+            "alpha_eval", "complexity_eval", "pa_characteristics", "channel_tf",
+            "alpha_vs_tx_pow", "precoding_nl_commutation", "siso_ser_vs_snr",
+            "siso_rayleigh_zf_cnc"}
+
+
 def test_registry_is_the_ported_experiments():
-    assert set(EXPERIMENTS) == set(RUNS) | CODED
+    assert set(EXPERIMENTS) == set(RUNS) | CODED | ANALYSIS
     assert set(EXPERIMENTS) <= set(JAX_EXPERIMENTS)
 
 
