@@ -81,6 +81,18 @@ Phases, each printing one JSON line:
    check; (f) an f32 radiation pattern and a SISO frame through the
    kernel and the plain version; (g) each path's launches against the
    code's prediction; and the kernel's time at the analysis shapes.
+14. scale_out: (a) a world-size-1 NCCL job (``parallel.multihost``): the
+   sharded rounds on its (1, 1) mesh (``parallel.sharded``) against the
+   unsharded ones for the same keys, counters equal and 10 launches a
+   round: bench.py's Rayleigh frame (CNC and MCNC, 3 rounds of 128
+   frames), MRT+MCNC-MU (one round) and ``ldpc_ref_ber``'s CNC round (16
+   frames); the frames/s of both sides; one round's global draws (ms and
+   bytes on this rank); (c) ``weak_scaling`` on one device in that job
+   (frames/s, efficiency 1.0); (b) two spawned ranks on the card over
+   gloo: dp 2 on the Rayleigh frame equal to the single-process round,
+   tp 2 on canonical LOS (complex64 branch, f32 chain) within JAX's
+   tolerance for non-exact sharding with the differing bits printed, and
+   10 launches a round on each rank.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -1183,6 +1195,294 @@ def analysis(fp, config, results, dev, card: str = "", n_ant: int = 64,
     return out
 
 
+# --- phase 14: scale-out -------------------------------------------------------
+
+SCALE_KEY = 7
+SCALE_TIMEOUT_S = 300           # the 2-rank job's bound, spawn and gloo set-up included
+
+
+def scale_cfg(config, channel: str, alg: str, n_ant: int = 64, small: bool = False,
+              **changes):
+    """Phase 14's frames: the canonical configuration with ``channel``,
+    the receiver ``alg`` and the fields in ``changes``. ``small`` (n_fft
+    256, ``n_ant`` antennas) exists for rehearsals on the CPU."""
+    cfg, _ = config.canonical_miso_cnc()
+    cfg = cfg.replace(channel=config.ChannelConfig(model=channel),
+                      rx=dataclasses.replace(cfg.rx, algorithm=alg), **changes)
+    if small:
+        cfg = cfg.replace(modem=dataclasses.replace(cfg.modem, n_fft=256, n_sub_carr=128),
+                          array=dataclasses.replace(cfg.array, n_elements=n_ant))
+    return cfg
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_vs_unsharded(fp, name: str, sharded_fn, plain_fn, rounds: int, batch: int,
+                         snr: float, dev, card: str = "") -> dict:
+    """``rounds`` rounds of a sharded round function and of its unsharded
+    counterpart for the same ``(key, idx)``, after one warm-up each, with
+    the kernel's launches counted over the sharded rounds alone. Fails
+    unless the counters are equal and there are 10 launches a round."""
+    kern = fp.fused_ifft_pa_fft
+    sharded_fn(SCALE_KEY, 10_000, snr)
+    plain_fn(SCALE_KEY, 10_000, snr)
+    torch.cuda.synchronize()
+    kern.launches = 0
+    t0 = time.perf_counter()
+    got = [sharded_fn(SCALE_KEY, i, snr) for i in range(rounds)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = kern.launches
+    t0 = time.perf_counter()
+    want = [plain_fn(SCALE_KEY, i, snr) for i in range(rounds)]
+    torch.cuda.synchronize()
+    dt_plain = time.perf_counter() - t0
+    got = [g.cpu().tolist() for g in got]
+    want = [w.cpu().tolist() for w in want]
+    expected = rounds * (1 + N_ITERS + 1)
+    line = {"path": name, "rounds": rounds, "batch": batch, "snr_db": snr,
+            "counters": got, "unsharded_counters": want, "equal": got == want,
+            "launches": launches, "expected_launches": expected,
+            "frames_per_s": rounds * batch / dt,
+            "unsharded_frames_per_s": rounds * batch / dt_plain, "card": card}
+    print(json.dumps({"phase": "scale_out", **line}), flush=True)
+    if got != want:
+        raise AssertionError(f"scale_out {name}: sharded counters {got} != {want}")
+    if launches != expected:
+        raise AssertionError(f"scale_out {name}: {launches} launches, expected {expected}")
+    return line
+
+
+def draw_cost(round_fn, dev, reps: int = 5) -> dict:
+    """Milliseconds and bytes of one round's global draws on this rank."""
+    draws = round_fn.draw(SCALE_KEY, 0)
+    tensors = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            tensors.append(x)
+        elif isinstance(x, tuple):
+            for v in x:
+                walk(v)
+    walk(draws)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        round_fn.draw(SCALE_KEY, 1 + i)
+    torch.cuda.synchronize()
+    return {"draw_ms": (time.perf_counter() - t0) / reps * 1e3,
+            "draw_bytes": sum(t.numel() * t.element_size() for t in tensors)}
+
+
+def scale_out_rank(rank: int, world: int, port: int, outdir: str, dev_type: str,
+                   batch: int, n_ant: int, small: bool, snr_ray: float,
+                   snr_los: float) -> None:
+    """One rank of phase 14 (b), a spawned process: joins the gloo group,
+    runs one dp-2 round per receiver of the Rayleigh frame and one tp-2
+    round per receiver of canonical LOS on the complex64 branch, counting
+    its own kernel launches, and writes them to ``outdir/rank<r>.json``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from mimo_ofdm_tpu_torch.kernels import fused_pa as fp
+    from mimo_ofdm_tpu_torch.parallel import multihost, sharded
+    from mimo_ofdm_tpu_torch.utils import config
+
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device("cpu")
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, local_device_ids=[0],
+                         backend="gloo", timeout=timedelta(seconds=120))
+    try:
+        kern = fp.fused_ifft_pa_fft
+        out = {"rank": rank, "force_plain": kern.force_plain}
+        meshes = {"dp2": sharded.make_mesh(n_dp=2), "tp2": sharded.make_mesh(n_tp=2)}
+        for axis, channel, snr, storage in (("dp2", "rayleigh", snr_ray, {}),
+                                            ("tp2", "los", snr_los,
+                                             {"channel_storage": "complex64",
+                                              "mxu_fft_storage": "float32"})):
+            for alg in ("cnc", "mcnc"):
+                cfg = scale_cfg(config, channel, alg, n_ant, small, **storage)
+                rf = sharded.make_sharded_round_fn(cfg, N_ITERS, batch, meshes[axis],
+                                                   device=dev)
+                rf(SCALE_KEY, 10_000, snr)
+                torch.cuda.synchronize()
+                kern.launches = 0
+                t0 = time.perf_counter()
+                c = rf(SCALE_KEY, 0, snr).cpu().tolist()
+                out[f"{axis}_{alg}"] = {"counters": c, "launches": kern.launches,
+                                        "seconds": time.perf_counter() - t0}
+        with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def two_ranks(fp, config, link, dev, batch: int, snr_ray: float, snr_los: float,
+              card: str = "", n_ant: int = 64, small: bool = False) -> dict:
+    """Phase 14 (b): two spawned ranks on the one card over gloo (NCCL
+    refuses two ranks on one GPU; gloo stages CUDA tensors through the
+    host, so these times are no scaling figure). dp 2 on the Rayleigh frame
+    must equal the single-process round; tp 2 on canonical LOS (complex64
+    branch, f32 chain) must lie within JAX's tolerance for non-exact
+    sharding (``|a - b| <= 8 + 0.05 b`` a counter), with the differing bits
+    printed; each rank must launch the kernel 10 times a round."""
+    import multiprocessing
+
+    want = {}
+    for axis, channel, snr, storage in (("dp2", "rayleigh", snr_ray, {}),
+                                        ("tp2", "los", snr_los,
+                                         {"channel_storage": "complex64",
+                                          "mxu_fft_storage": "float32"})):
+        for alg in ("cnc", "mcnc"):
+            cfg = scale_cfg(config, channel, alg, n_ant, small, **storage)
+            want[f"{axis}_{alg}"] = link.make_round_fn(cfg, N_ITERS, batch, device=dev)(
+                SCALE_KEY, 0, snr).cpu().tolist()
+    n_bits = batch * scale_cfg(config, "los", "cnc", n_ant, small).modem.n_bits_per_ofdm_sym
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=scale_out_rank,
+                         args=(r, 2, port, outdir, dev.type, batch, n_ant, small, snr_ray,
+                               snr_los)) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SCALE_TIMEOUT_S
+    for p in procs:
+        p.join(timeout=max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    seconds = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0]:
+        shutil.rmtree(outdir, ignore_errors=True)
+        raise AssertionError(f"scale_out two_ranks: rank exit codes {codes}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(outdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(outdir, ignore_errors=True)
+    line = {"path": "two_ranks_gloo", "batch": batch, "seconds": seconds, "card": card,
+            "launches": sum(r[k]["launches"] for r in ranks for k in want)}
+    for k, w in want.items():
+        got = [r[k]["counters"] for r in ranks]
+        diff = [abs(a - b) for a, b in zip(got[0], w)]
+        line[k] = {"counters": got[0], "single_process": w, "differing_bits": sum(diff),
+                   "max_counter_gap": max(diff),
+                   "launches_per_rank": [r[k]["launches"] for r in ranks],
+                   "seconds_per_rank": [r[k]["seconds"] for r in ranks]}
+    print(json.dumps({"phase": "scale_out", **line}), flush=True)
+    for k, w in want.items():
+        got = [r[k]["counters"] for r in ranks]
+        if got[0] != got[1]:
+            raise AssertionError(f"scale_out {k}: ranks disagree: {got}")
+        if k.startswith("dp2") and got[0] != w:
+            raise AssertionError(f"scale_out {k}: {got[0]} != single process {w}")
+        if k.startswith("tp2") and not all(abs(a - b) <= 8 + 0.05 * b
+                                           for a, b in zip(got[0], w)):
+            raise AssertionError(f"scale_out {k}: {got[0]} beyond tolerance of {w}")
+        launches = [r[k]["launches"] for r in ranks]
+        if launches != [1 + N_ITERS + 1] * 2 or any(r["force_plain"] for r in ranks):
+            raise AssertionError(f"scale_out {k}: rank launches {launches}, expected 10")
+    return line
+
+
+def scale_out(fp, config, link, link_mu, link_ldpc, ber_sweeps, dev, batch: int,
+              snr_los: float, snr_coded: float, card: str = "", rounds: int = 3,
+              n_ant: int = 64, small: bool = False, backend: str = "nccl") -> dict:
+    """Phase 14: scale-out. (a) a world-size-1 NCCL job: the sharded
+    single-user (Rayleigh frame, CNC and MCNC, ``rounds`` rounds),
+    multi-user (MRT+MCNC-MU) and transport-coded (``ldpc_ref_ber``'s CNC
+    round, 16 frames) rounds on its (1, 1) mesh against their unsharded
+    counterparts, and one round's draw cost; (c) ``weak_scaling`` on one
+    device in the same job; (b) two spawned ranks on the card over gloo
+    (:func:`two_ranks`). ``n_ant``, ``small`` and ``backend="gloo"``
+    exist for rehearsals on the CPU."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from mimo_ofdm_tpu_torch.experiments import EXPERIMENTS
+    from mimo_ofdm_tpu_torch.models.link import FrameDraws
+    from mimo_ofdm_tpu_torch.parallel import multihost, sharded
+
+    kern = fp.fused_ifft_pa_fft
+    out = {}
+    t_phase = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend=backend,
+                         timeout=timedelta(seconds=120))
+    try:
+        mesh = sharded.make_mesh(1, 1)
+        for alg in ("cnc", "mcnc"):
+            cfg = scale_cfg(config, "rayleigh", alg, n_ant, small,
+                            channel_storage="bfloat16", mxu_fft_storage="bfloat16")
+            rf = sharded.make_sharded_round_fn(cfg, N_ITERS, batch, mesh, device=dev)
+            out[f"scale_ws1_{alg}"] = sharded_vs_unsharded(
+                fp, f"ws1_rayleigh_{alg}", rf,
+                link.make_round_fn(cfg, N_ITERS, batch, device=dev), rounds, batch, 15.0,
+                dev, card)
+        cost = draw_cost(rf, dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        f32 = FrameDraws.draw(cfg, batch, gen)
+        cost["draw_bytes_f32_fade"] = sum(t.numel() * t.element_size() for t in f32
+                                          if isinstance(t, torch.Tensor))
+        out["scale_ws1_mcnc"]["draw_cost"] = cost
+        print(json.dumps({"phase": "scale_out", "path": "draw_cost", "batch": batch,
+                          **cost, "card": card}), flush=True)
+        cfg = scale_cfg(config, "los", "mcnc_mu", n_ant, small, precoding="mrt",
+                        modem=dataclasses.replace(
+                            scale_cfg(config, "los", "cnc", n_ant, small).modem, n_users=2))
+        out["scale_ws1_mu"] = sharded_vs_unsharded(
+            fp, "ws1_mu_mrt_mcnc_mu",
+            sharded.make_sharded_mu_round_fn(cfg, N_ITERS, batch, mesh, device=dev),
+            link_mu.make_mu_round_fn(cfg, N_ITERS, batch, device=dev), 1, batch, snr_los,
+            dev, card)
+        cfg = ber_sweeps.coded_link_config("los", "cnc", n_ant, 0.0, small)
+        chain = link_ldpc.reference_chain(cfg, 0.5)
+        coded_kw = dict(ldpc_iters=12, ldpc_algorithm="sumprod", device=dev)
+        out["scale_ws1_coded"] = sharded_vs_unsharded(
+            fp, "ws1_coded_ref_cnc",
+            sharded.make_sharded_transport_round_fn(cfg, N_ITERS, CODED_BATCH, chain, mesh,
+                                                    **coded_kw),
+            link_ldpc.make_transport_round_fn(cfg, N_ITERS, CODED_BATCH, chain, **coded_kw),
+            1, CODED_BATCH, snr_coded, dev, card)
+
+        kern.launches = 0
+        t0 = time.perf_counter()
+        payload = EXPERIMENTS["weak_scaling"](
+            n_ant=n_ant, n_iters=N_ITERS, batch_per_device=batch, device_counts=[1],
+            small=small, save_json=False, verbose=False, min_seconds=2.0, device=dev)
+        launches = kern.launches
+        res = payload["results"]["1"]
+        line = {"path": "weak_scaling", "platform": payload["platform"],
+                "device_name": payload["device_name"], **res, "launches": launches,
+                "seconds": time.perf_counter() - t0, "card": card}
+        print(json.dumps({"phase": "scale_out", **line}), flush=True)
+        if (res["efficiency"] != 1.0 or not res["frames_per_s"] > 0
+                or launches == 0 or launches % (1 + N_ITERS + 1)):
+            raise AssertionError(f"scale_out weak_scaling: {line}")
+        out["scale_weak_scaling"] = line
+    finally:
+        dist.destroy_process_group()
+    snr_ray = 15.0
+    out["scale_two_ranks"] = two_ranks(fp, config, link, dev, batch, snr_ray, snr_los,
+                                       card, n_ant, small)
+    emit("scale_out", seconds=time.perf_counter() - t_phase,
+         launches=sum(p["launches"] for p in out.values()), card=card)
+    return out
+
+
 def timing(fp, ofdm, dev, batch: int, card: str = "", n_fft: int = 4096,
            n_sc: int = 2048) -> dict:
     """Phase 6: kernel, plain and torch.fft chain at the main path's shapes."""
@@ -1276,6 +1576,9 @@ def main() -> int:
     paths.update(coded(fp, link, link_ldpc, profiling, results, ber_sweeps, metrics, dev, smi))
     paths.update(analysis(fp, config, results, dev, smi))
     analysis_times = analysis_timing(fp, ofdm, dev, smi)
+    snr_coded = float(metrics.ebn0_to_snr(CODED_EBN0_DB[0], 2048, 2048, 64))
+    paths.update(scale_out(fp, config, link, link_mu, link_ldpc, ber_sweeps, dev, args.batch,
+                           snr_los, snr_coded, smi))
 
     tx = times["tx"]
     launches = sum(p["launches"] for p in paths.values())

@@ -4,8 +4,7 @@ configs, and the CLI runs them by name:
 
     python -m mimo_ofdm_tpu_torch.experiments <name> [--flag value ...]
 
-Every experiment of the JAX package is registered but ``weak_scaling``
-(scale-out):
+Every experiment of the JAX package is registered, all 37:
 
 * ``ber_sweeps.py``: the BER sweeps (vs Eb/N0, IBO and antenna count, the
   fixed-BER grid, the AWGN, CSI-error and TOI variants,
@@ -19,7 +18,13 @@ Every experiment of the JAX package is registered but ``weak_scaling``
 * ``misc_evals.py``: alpha validation, complexity tables, PA
   characteristics, channel transfer functions, alpha vs per-antenna power,
   the precoding/nonlinearity commutation check;
-* ``siso_checks.py``: the SISO SER anchors in AWGN and Rayleigh.
+* ``siso_checks.py``: the SISO SER anchors in AWGN and Rayleigh;
+* ``parallel_evals.py``: ``weak_scaling``, frames/s and efficiency of the
+  sharded round over growing dp meshes (``parallel/scaling.py``).
+
+Under ``torchrun`` (``WORLD_SIZE`` set) the CLI joins the job's process
+group first (``parallel/multihost.py``), so an experiment's rounds can
+shard over its ranks.
 """
 
 from __future__ import annotations
@@ -35,4 +40,4 @@ def register(name):
 
 
 from mimo_ofdm_tpu_torch.experiments import (  # noqa: E402,F401
-    ber_sweeps, misc_evals, siso_checks, spatial)
+    ber_sweeps, misc_evals, parallel_evals, siso_checks, spatial)

@@ -6,11 +6,18 @@ parsed as Python literals when possible (``--channels '("los","rayleigh")'``,
 runs on the card unless given ``--device cpu``, and writes its CSV under
 ``figs/csv_results_torch/`` (or ``$MIMO_OFDM_TPU_TORCH_RESULTS``) unless
 given ``--save-csv False``.
+
+Under ``torchrun`` (``WORLD_SIZE`` set) the process first joins the job
+through ``parallel.multihost.initialize()`` (over gloo with ``--device
+cpu``), e.g.::
+
+    torchrun --nproc_per_node=2 -m mimo_ofdm_tpu_torch.experiments weak_scaling --device cpu
 """
 
 from __future__ import annotations
 
 import ast
+import os
 import sys
 
 from mimo_ofdm_tpu_torch.experiments import EXPERIMENTS
@@ -83,6 +90,12 @@ def main(argv=None) -> int:
         except StopIteration:
             val = "True"
         kwargs[key] = _parse_value(val)
+    if "WORLD_SIZE" in os.environ:
+        import torch.distributed as dist
+
+        from mimo_ofdm_tpu_torch.parallel import multihost
+        if not dist.is_initialized():
+            multihost.initialize(backend="gloo" if kwargs.get("device") == "cpu" else None)
     EXPERIMENTS[name](**kwargs)
     return 0
 

@@ -18,6 +18,7 @@ import torch
 
 from mimo_ofdm_tpu_torch.models.precoding import (per_antenna_alpha,
                                                   precoding_power_per_antenna)
+from mimo_ofdm_tpu_torch.parallel.collectives import ant_sum
 
 
 class AgcStateSc(NamedTuple):
@@ -31,7 +32,7 @@ class AgcStateSc(NamedTuple):
 
 def compute_agc_sc(h_sc: torch.Tensor, v: torch.Tensor, ibo_db: float,
                    n_ant: int, usr_idx: int | slice | None = None,
-                   alpha_override: float | None = None) -> AgcStateSc:
+                   alpha_override: float | None = None, ant_group=None) -> AgcStateSc:
     """AGC state from the channel ``h_sc`` and precoder ``v``, both
     ``[..., n_ant, n_sc]`` (``reference/mp_model.py:290-329``).
     ``alpha_override`` replaces the per-antenna Bussgang closed form with a
@@ -44,7 +45,12 @@ def compute_agc_sc(h_sc: torch.Tensor, v: torch.Tensor, ibo_db: float,
     user axis is indexed in front, ``v.movedim(-2, 0)[usr_idx]``, so
     ``usr_idx=slice(None)`` with users-first channels ``[n_usr, ...,
     n_ant, n_sc]`` gives every user's state at once, with the user axis
-    leading."""
+    leading.
+
+    With ``ant_group`` the channel and precoder hold this rank's antennas,
+    ``n_ant`` stays the global count (it sets each antenna's IBO), and the
+    two sums over antennas all-reduce over the group
+    (``mimo_ofdm_tpu/models/agc.py:129-132``)."""
     n_sc = h_sc.shape[-1]
     if usr_idx is None:
         vk_pow_vec = precoding_power_per_antenna(v)
@@ -53,12 +59,12 @@ def compute_agc_sc(h_sc: torch.Tensor, v: torch.Tensor, ibo_db: float,
         vk_pow_vec = precoding_power_per_antenna(v, multi_user=True)
         v_usr = v.movedim(-2, 0)[usr_idx]
     hk_vk = h_sc * v_usr
-    hk_vk_avg = hk_vk.sum(-2)
+    hk_vk_avg = ant_sum(hk_vk, -2, ant_group)
     if alpha_override is None:
         ak_vect = per_antenna_alpha(ibo_db, vk_pow_vec, n_sc, n_ant)
     else:
         ak_vect = torch.full_like(vk_pow_vec, alpha_override)
-    ak_hk_vk_avg = (ak_vect[..., None].to(hk_vk.dtype) * hk_vk).sum(-2)
+    ak_hk_vk_avg = ant_sum(ak_vect[..., None].to(hk_vk.dtype) * hk_vk, -2, ant_group)
     return AgcStateSc(
         hk_vk_agc_sc=hk_vk_avg,
         hk_vk_noise_scaler=(hk_vk_avg.abs() ** 2).mean(-1),

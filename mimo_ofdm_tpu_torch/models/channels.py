@@ -27,6 +27,7 @@ import torch
 from mimo_ofdm_tpu_torch.models.geometry import C_LIGHT
 from mimo_ofdm_tpu_torch.ops import ofdm
 from mimo_ofdm_tpu_torch.ops.noise import complex_normal
+from mimo_ofdm_tpu_torch.parallel.collectives import ant_sum
 
 
 def _rdiv(num: float, t: torch.Tensor) -> torch.Tensor:
@@ -47,11 +48,13 @@ def _f32(a, device) -> torch.Tensor | None:
 
 
 def propagate(channel_mat_fd: torch.Tensor, in_sig_mat: torch.Tensor,
-              sum_signals: bool = True) -> torch.Tensor:
+              sum_signals: bool = True, ant_group=None) -> torch.Tensor:
     """``H o X`` then (optionally) the sum over the antenna axis ``-2``
-    (``reference/channel.py:74-89``)."""
+    (``reference/channel.py:74-89``). With ``ant_group`` the arrays hold
+    this rank's antennas, and the sum is the local one all-reduced over the
+    group (``mimo_ofdm_tpu/models/channels.py:33-45``)."""
     out = in_sig_mat * channel_mat_fd
-    return out.sum(-2) if sum_signals else out
+    return ant_sum(out, -2, ant_group) if sum_signals else out
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,14 @@ TDL and GSCM channels, the ``none`` and ``phase`` precoders, both CSI-error
 models, ``channel_storage="complex64"``, transforms the kernel does not
 take). :func:`make_channel_fn` is shared with the multi-user link
 (``models/link_mu.py``), which takes the multi-user configs.
+
+Antenna sharding: ``make_frame_fn(..., ant_group=group)`` builds the
+complex64 frame of this rank's antennas, with every sum over antennas
+all-reduced over ``group`` (``parallel/sharded.py`` builds the group). It
+takes the same global :class:`FrameDraws` as an unsharded frame and keeps
+its antennas' rows of the per-antenna draws (the Rayleigh fade, the
+Rician scatter, the CSI error), so a shard sees the very channel a
+single-device frame draws.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from mimo_ofdm_tpu_torch.models.channels import _f32
 from mimo_ofdm_tpu_torch.ops import bits as bits_ops
 from mimo_ofdm_tpu_torch.ops import noise as noise_ops
 from mimo_ofdm_tpu_torch.ops import ofdm, pa
+from mimo_ofdm_tpu_torch.parallel.collectives import all_reduce_mean, ant_slice
 from mimo_ofdm_tpu_torch.utils.config import LinkConfig
 from mimo_ofdm_tpu_torch.utils.device import resolve_device
 
@@ -202,16 +211,20 @@ def bussgang_override(cfg: LinkConfig) -> float | None:
     return None
 
 
-def frame_signature(frame, ibo_as_arg: bool, ibo_db: float):
+def frame_signature(frame, ibo_as_arg: bool, ibo_db: float, draw=None):
     """``frame(snr_db, ibo_db, draws, batch, generator)`` as the public
     ``frame_fn(snr_db, draws=None, *, batch=None, generator=None)`` at the
     config's IBO, or with ``ibo_as_arg`` as ``frame_fn(snr_db, ibo_db,
-    draws=None, ...)``."""
+    draws=None, ...)``. ``draw(batch, generator)``, the draws the frame
+    makes for itself when it is given none, is kept as ``frame_fn.draw``:
+    a sharded round draws the global batch with it and hands each rank
+    its rows."""
     if ibo_as_arg:
         def frame_fn_ibo(snr_db, ibo_db: float, draws: FrameDraws | None = None,
                          *, batch: int | None = None,
                          generator: torch.Generator | None = None) -> FrameCounters:
             return frame(snr_db, ibo_db, draws, batch, generator)
+        frame_fn_ibo.draw = draw
         return frame_fn_ibo
 
     def frame_fn(snr_db, draws: FrameDraws | None = None, *,
@@ -219,6 +232,7 @@ def frame_signature(frame, ibo_as_arg: bool, ibo_db: float):
                  generator: torch.Generator | None = None) -> FrameCounters:
         return frame(snr_db, ibo_db, draws, batch, generator)
 
+    frame_fn.draw = draw
     return frame_fn
 
 
@@ -236,7 +250,7 @@ def _check_single_user(cfg: LinkConfig) -> None:
 
 
 def make_channel_fn(cfg: LinkConfig, freqs: torch.Tensor,
-                    rx_base: torch.Tensor, reroll: bool):
+                    rx_base: torch.Tensor, reroll: bool, rows: slice = slice(None)):
     """Channel generator ``channel_fn(tx_pos, draws=None) -> [..., n_ant,
     n_f]`` complex64 (``mimo_ofdm_tpu/models/link.py:54-126``). ``draws``
     is anything with the fields ``fade``, ``loc`` and ``chan`` of
@@ -246,30 +260,23 @@ def make_channel_fn(cfg: LinkConfig, freqs: torch.Tensor,
     the stochastic ones take their draws from ``draws.fade`` (Rayleigh) or
     ``draws.chan``. The TDL and GSCM array steering runs at ``fc =
     mean(freqs)``, the mean of the grid handed in. Without a reroll LOS and
-    two-path have no batch dim."""
+    two-path have no batch dim.
+
+    ``rows`` selects the antennas of one antenna shard: ``tx_pos`` stays the
+    whole array's, the per-antenna channels (AWGN, LOS, two-path,
+    Rayleigh, Rician) are formed for the shard's elements from its rows of
+    the draws, and the channels whose steering is relative to the whole
+    array (random paths: the first element; TDL and GSCM: the array's
+    centre) are formed for the whole array and cut to the shard's rows."""
     model = cfg.channel.model
     if model not in CHANNEL_MODELS:
         raise ValueError(f"unknown channel model {model!r}")
     ch = cfg.channel
     skip_att = ch.skip_attenuation
 
-    def channel_fn(tx_pos: torch.Tensor, draws=None):
-        if model == "awgn":
-            return torch.ones((tx_pos.shape[0], freqs.shape[-1]),
-                              dtype=torch.complex64, device=freqs.device)
-        if model == "rayleigh":
-            return channels.rayleigh_channel(draws.fade.to(freqs.device), tx_pos,
-                                             rx_base, freqs, skip_att)
+    def array_channel(tx_pos: torch.Tensor, draws, rx_pos):
         if model == "random_paths":
             return channels.random_paths_channel(draws.chan, tx_pos, freqs)
-        rx_pos = rx_positions(rx_base, draws.loc) if reroll else rx_base
-        if model == "los":
-            return channels.los_channel(tx_pos, rx_pos, freqs, skip_att)
-        if model == "two_path":
-            return channels.two_path_channel(tx_pos, rx_pos, freqs, skip_att)
-        if model == "rician":
-            return channels.rician_channel(draws.chan, tx_pos, rx_pos, freqs,
-                                           ch.rician_k_db, skip_att)
         if rx_pos.ndim == 1:                      # one drop per frame of the batch
             rx_pos = rx_pos.expand(len(draws.chan[0]), 3)
         if model == "tdl_3gpp":
@@ -282,11 +289,31 @@ def make_channel_fn(cfg: LinkConfig, freqs: torch.Tensor,
                                  scenario=ch.gscm_scenario, skip_attenuation=skip_att,
                                  element_pattern=ch.gscm_element_pattern)
 
+    def channel_fn(tx_pos: torch.Tensor, draws=None):
+        if model in ("random_paths", "tdl_3gpp", "gscm"):
+            rx_pos = (rx_positions(rx_base, draws.loc)
+                      if reroll and model != "random_paths" else rx_base)
+            return array_channel(tx_pos, draws, rx_pos)[..., rows, :]
+        tx_pos = tx_pos[rows]
+        if model == "awgn":
+            return torch.ones((tx_pos.shape[0], freqs.shape[-1]),
+                              dtype=torch.complex64, device=freqs.device)
+        if model == "rayleigh":
+            return channels.rayleigh_channel(draws.fade[..., rows, :].to(freqs.device),
+                                             tx_pos, rx_base, freqs, skip_att)
+        rx_pos = rx_positions(rx_base, draws.loc) if reroll else rx_base
+        if model == "los":
+            return channels.los_channel(tx_pos, rx_pos, freqs, skip_att)
+        if model == "two_path":
+            return channels.two_path_channel(tx_pos, rx_pos, freqs, skip_att)
+        return channels.rician_channel(draws.chan[..., rows, :], tx_pos, rx_pos, freqs,
+                                       ch.rician_k_db, skip_att)
     return channel_fn
 
 
 def make_frame_fn(cfg: LinkConfig, n_iters: int, *, incl_clean: bool = True,
-                  reroll: bool = True, ibo_as_arg: bool = False, device=None):
+                  reroll: bool = True, ibo_as_arg: bool = False, device=None,
+                  ant_group=None):
     """Build ``frame_fn(snr_db, draws=None, *, batch=None, generator=None)
     -> FrameCounters`` on ``device`` (``cuda`` unless ``device="cpu"``).
 
@@ -297,23 +324,31 @@ def make_frame_fn(cfg: LinkConfig, n_iters: int, *, incl_clean: bool = True,
     ``reroll`` moves the RX of a geometric channel per frame.
     ``ibo_as_arg=True`` gives ``frame_fn(snr_db, ibo_db, draws=None, ...)``
     with the IBO, a Python float, taken per call (one frame function for a
-    whole IBO sweep)."""
+    whole IBO sweep).
+
+    ``ant_group``, a process group, makes this the frame of one antenna
+    shard (``mimo_ofdm_tpu/models/link.py:131-300`` under
+    ``ant_axis_name``): always the complex64 branch, as in JAX, taking the
+    global draws (see the module docstring)."""
     from mimo_ofdm_tpu_torch.models import link_planar
 
     dev = resolve_device(device)
     _check_single_user(cfg)
-    if cfg.channel_storage != "complex64" and link_planar.planar_eligible(cfg):
+    if (ant_group is None and cfg.channel_storage != "complex64"
+            and link_planar.planar_eligible(cfg)):
         return link_planar.make_planar_frame_fn(
             cfg, n_iters, incl_clean=incl_clean, reroll=reroll,
             storage=cfg.channel_storage, ibo_as_arg=ibo_as_arg, device=dev)
     return _make_complex_frame_fn(cfg, n_iters, incl_clean, reroll,
-                                  ibo_as_arg, dev)
+                                  ibo_as_arg, dev, ant_group)
 
 
 def _make_complex_frame_fn(cfg: LinkConfig, n_iters: int, incl_clean: bool,
-                           reroll: bool, ibo_as_arg: bool, dev: torch.device):
+                           reroll: bool, ibo_as_arg: bool, dev: torch.device,
+                           ant_group=None):
     """The complex64 branch of :func:`make_frame_fn`
-    (``mimo_ofdm_tpu/models/link.py:162-311``)."""
+    (``mimo_ofdm_tpu/models/link.py:162-311``), for this rank's antennas
+    under ``ant_group``."""
     m = cfg.modem.constel_size
     n_fft, n_sc = cfg.modem.n_fft, cfg.modem.n_sub_carr
     n_ant = cfg.array.n_elements
@@ -326,41 +361,49 @@ def _make_complex_frame_fn(cfg: LinkConfig, n_iters: int, incl_clean: bool,
     alpha_override = bussgang_override(cfg)
 
     tx_pos, freqs, rx_base = link_static(cfg, dev)
+    rows = ant_slice(n_ant, ant_group)                # every antenna without a group
+    shard = dict(ant_group=ant_group, n_ant_global=n_ant)
     # the receivers observe the data subcarriers only, so the channel,
     # noise and AGC live on the n_sc grid
     freqs_sc = ofdm.extract_subcarriers(freqs, n_sc)
-    channel_fn = make_channel_fn(cfg, freqs_sc, rx_base, reroll)
-    precoder = precoding.make_precoder(cfg.precoding, cfg.modem.n_users)
+    channel_fn = make_channel_fn(cfg, freqs_sc, rx_base, reroll, rows)
+    precoder = precoding.make_precoder(cfg.precoding, cfg.modem.n_users, **shard)
+
+    def draw(batch: int, generator: torch.Generator) -> FrameDraws:
+        return FrameDraws.draw(cfg, batch, generator, reroll=reroll)
 
     def _frame(snr_db, ibo_db: float, draws: FrameDraws | None,
                batch: int | None, generator: torch.Generator | None
                ) -> FrameCounters:
         ibo_db = float(ibo_db)
         if draws is None:
-            draws = FrameDraws.draw(cfg, batch, generator, reroll=reroll)
+            draws = draw(batch, generator)
         b = draws.batch
-        h_sc = channel_fn(tx_pos, draws).expand(b, n_ant, n_sc)   # true channel
+        # the true channel
+        h_sc = channel_fn(tx_pos, draws).expand(b, rows.stop - rows.start, n_sc)
         if cfg.csi_epsilon:
-            h_pre_sc = channels.csi_error_sc(draws.csi.to(dev), h_sc, cfg.csi_epsilon)
+            h_pre_sc = channels.csi_error_sc(draws.csi[..., rows, :].to(dev), h_sc,
+                                             cfg.csi_epsilon)
         elif cfg.csi_snr_db is not None:
             # additive CSI noise at a fixed CSI SNR against the frame's mean
             # per-bin channel power
-            p = (h_sc.abs() ** 2).mean((-2, -1), keepdim=True)
+            p = all_reduce_mean((h_sc.abs() ** 2).mean((-2, -1), keepdim=True), ant_group)
             sigma2 = p / (10.0 ** (cfg.csi_snr_db / 10.0))
-            csi_noise = noise_ops.complex_normal(draws.csi.to(dev).movedim(-3, -2))
+            csi_noise = noise_ops.complex_normal(
+                draws.csi[..., rows, :].to(dev).movedim(-3, -2))
             h_pre_sc = h_sc + csi_noise * torch.sqrt(sigma2).to(h_sc.dtype)
         else:
             h_pre_sc = h_sc
 
         v = precoder(h_pre_sc)                            # [B, n_ant, n_sc]
-        sat_pow = precoding.pa_sat_power(ibo_db, avg_samp_pow, v)[:, None]
+        sat_pow = precoding.pa_sat_power(ibo_db, avg_samp_pow, v, **shard)[:, None]
         # for TOI the IBO is the intercept point against the precoded
         # average power (reference/distortion.py:222-228)
         toi_coeff = (pa.toi_to_cubic_coeff(
-            ibo_db, avg_samp_pow * precoding.avg_precoding_gain(v))[:, None]
+            ibo_db, avg_samp_pow * precoding.avg_precoding_gain(v, **shard))[:, None]
             if pa_model == "toi" else 0.0)
         agc = agc_mod.compute_agc_sc(h_pre_sc, v, ibo_db, n_ant,
-                                     alpha_override=alpha_override)
+                                     alpha_override=alpha_override, ant_group=ant_group)
 
         # clean run (reference/mp_model.py:136-175): without the PA the TX
         # (I)FFT round trip is the identity, so the symbols meet the
@@ -370,7 +413,8 @@ def _make_complex_frame_fn(cfg: LinkConfig, n_iters: int, incl_clean: bool,
             sym_c = transmit.modulate_users(bits_c, m)
             # under CSI error, propagation uses the TRUE channel while the
             # AGC vector comes from the noisy one
-            hv_true = channels.propagate(h_sc, v) if csi_err else agc.hk_vk_agc_sc
+            hv_true = (channels.propagate(h_sc, v, ant_group=ant_group) if csi_err
+                       else agc.hk_vk_agc_sc)
             rx_c = noise_ops.awgn(sym_c * hv_true, snr_db,
                                   avg_sym_pow * agc.hk_vk_noise_scaler,
                                   noise_ops.complex_normal(draws.noise_c.to(dev)))
@@ -386,7 +430,7 @@ def _make_complex_frame_fn(cfg: LinkConfig, n_iters: int, incl_clean: bool,
         fd_dist_sc = transmit.ifft_pa_fft_sc(
             transmit.precode_symbols(sym_d, v), n_fft, pa_model, sat_pow,
             rapp_p, toi_coeff, **mxu)
-        rx_d = noise_ops.awgn(channels.propagate(h_sc, fd_dist_sc), snr_db,
+        rx_d = noise_ops.awgn(channels.propagate(h_sc, fd_dist_sc, ant_group=ant_group), snr_db,
                               avg_sym_pow * agc.ak_hk_vk_noise_scaler,
                               noise_ops.complex_normal(draws.noise_d.to(dev)))
         rx_sc = rx_d / agc.ak_hk_vk_agc_sc
@@ -402,7 +446,7 @@ def _make_complex_frame_fn(cfg: LinkConfig, n_iters: int, incl_clean: bool,
             replica = receivers.make_mcnc_replica(
                 h_pre_sc, v, agc.ak_hk_vk_agc_sc, constel_size=m, n_fft=n_fft,
                 n_sc=n_sc, pa_model=pa_model, sat_power=sat_pow, rapp_p=rapp_p,
-                toi_coeff=toi_coeff, **mxu)
+                toi_coeff=toi_coeff, ant_group=ant_group, **mxu)
             bits_all, _ = receivers.cnc_iterate(rx_sc, n_iters, m, replica)
         else:  # "none"
             one = receivers.standard_receive_sc(rx_sc, m)
@@ -411,7 +455,7 @@ def _make_complex_frame_fn(cfg: LinkConfig, n_iters: int, incl_clean: bool,
         dist_err = bits_ops.count_bit_errors(bits_d, bits_all, axis=-1)
         return FrameCounters(clean_err=clean_err, dist_err=dist_err.T.contiguous())
 
-    return frame_signature(_frame, ibo_as_arg, cfg.pa.ibo_db)
+    return frame_signature(_frame, ibo_as_arg, cfg.pa.ibo_db, draw)
 
 
 def round_seed(key: int, idx: int) -> int:

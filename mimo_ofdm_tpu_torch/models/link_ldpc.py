@@ -367,13 +367,20 @@ def make_transport_body_fn(cfg: LinkConfig, n_iters: int, chain: transport.Trans
                            serial_decode: int = 0, nv_adjust: bool = False, device=None):
     """The transport round's body ``body(snr_db, draws) -> [2 (n_iters +
     2)]`` int32 (:func:`_transport_flat` of the frames' counters), the
-    unit a sharded round would run per shard
-    (``mimo_ofdm_tpu/models/link_ldpc.py:494-556``)."""
+    unit a sharded round runs per shard
+    (``mimo_ofdm_tpu/models/link_ldpc.py:494-556``). ``body.draw(batch,
+    generator)`` draws a round's frames."""
     frame_fn = make_transport_frame_fn(cfg, n_iters, chain, ldpc_iters,
                                        ldpc_algorithm=ldpc_algorithm, incl_clean=incl_clean,
                                        reroll=reroll, nv_adjust=nv_adjust,
                                        serial_decode=serial_decode, device=device)
-    return lambda snr_db, draws: _transport_flat(frame_fn(snr_db, draws))
+
+    def body(snr_db, draws: FrameDraws) -> torch.Tensor:
+        return _transport_flat(frame_fn(snr_db, draws))
+
+    body.draw = lambda batch, generator: FrameDraws.draw(cfg, batch, generator,
+                                                         reroll=reroll, n_bits=chain.a)
+    return body
 
 
 def make_transport_round_fn(cfg: LinkConfig, n_iters: int, batch: int,
@@ -394,7 +401,7 @@ def make_transport_round_fn(cfg: LinkConfig, n_iters: int, batch: int,
     def round_fn(key: int, idx: int, snr_db) -> torch.Tensor:
         gen = torch.Generator(device=dev)
         gen.manual_seed(round_seed(key, idx))
-        return body(snr_db, FrameDraws.draw(cfg, batch, gen, reroll=reroll, n_bits=chain.a))
+        return body(snr_db, body.draw(batch, gen))
 
     return round_fn
 

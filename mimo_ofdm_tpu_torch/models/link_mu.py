@@ -21,6 +21,11 @@ the TX over ``B x n_ant`` rows (the users are summed before the chain),
 then each replica pass over ``B x n_usr`` rows (``cnc``, ``cnc_mu``) or
 ``B x n_usr x n_ant`` rows (``mcnc_mu``). Per-user tensors run with the
 user axis first, ``[n_usr, B, ...]``.
+
+Antenna sharding: with ``ant_group`` both frames run this rank's antennas
+(the multi-user precoders, AGC, propagation and MCNC-MU replica
+all-reduce over the group) on the same global :class:`MuFrameDraws`, of
+which each user's channel keeps the shard's rows.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from mimo_ofdm_tpu_torch.models.link import (_i8, chan_from_numpy, draw_channel,
 from mimo_ofdm_tpu_torch.ops import bits as bits_ops
 from mimo_ofdm_tpu_torch.ops import noise as noise_ops
 from mimo_ofdm_tpu_torch.ops import ofdm
+from mimo_ofdm_tpu_torch.parallel.collectives import ant_slice
 from mimo_ofdm_tpu_torch.utils.config import LinkConfig
 from mimo_ofdm_tpu_torch.utils.device import resolve_device
 
@@ -133,44 +139,55 @@ class MuFrameDraws(NamedTuple):
 
 
 def _user_channels(cfg: LinkConfig, user_positions: np.ndarray, reroll: bool,
-                   dev: torch.device):
+                   dev: torch.device, ant_group=None):
     """``user_channels(draws) -> [n_usr, B, n_ant, n_sc]``: one channel
     generator per user position on the data-bin grid
     (``mimo_ofdm_tpu/models/link_mu.py:92-99``); each user's RX moves
-    around its own position."""
-    n_ant, n_sc = cfg.array.n_elements, cfg.modem.n_sub_carr
+    around its own position. Under ``ant_group``, this rank's antennas."""
+    n_sc = cfg.modem.n_sub_carr
+    rows = ant_slice(cfg.array.n_elements, ant_group)   # every antenna without a group
     tx_pos, freqs, _ = link_static(cfg, dev)
     freqs_sc = ofdm.extract_subcarriers(freqs, n_sc)
     fns = [make_channel_fn(cfg, freqs_sc,
                            torch.as_tensor(np.asarray(pos, np.float32), device=dev),
-                           reroll)
+                           reroll, rows)
            for pos in user_positions]
 
     def user_channels(draws: MuFrameDraws) -> torch.Tensor:
         b = draws.batch
-        return torch.stack([fn(tx_pos, d).expand(b, n_ant, n_sc)
+        return torch.stack([fn(tx_pos, d).expand(b, rows.stop - rows.start, n_sc)
                             for fn, d in zip(fns, draws.users)])
 
     return user_channels
 
 
 def _mu_signature(frame, cfg: LinkConfig, n_usr: int, reroll: bool, sep: bool):
+    """The public ``frame_fn(snr_db, draws=None, *, batch=None,
+    generator=None)``, with its own draws kept as ``frame_fn.draw(batch,
+    generator)`` (see ``link.frame_signature``)."""
+    def draw(batch: int, generator: torch.Generator) -> MuFrameDraws:
+        return MuFrameDraws.draw(cfg, n_usr, batch, generator, reroll, sep)
+
     def frame_fn(snr_db, draws: MuFrameDraws | None = None, *,
                  batch: int | None = None,
                  generator: torch.Generator | None = None) -> MuFrameCounters:
         if draws is None:
-            draws = MuFrameDraws.draw(cfg, n_usr, batch, generator, reroll, sep)
+            draws = draw(batch, generator)
         return frame(snr_db, draws)
+
+    frame_fn.draw = draw
     return frame_fn
 
 
 def make_mu_frame_fn(cfg: LinkConfig, n_iters: int, user_positions: np.ndarray, *,
-                     incl_clean: bool = True, reroll: bool = True, device=None):
+                     incl_clean: bool = True, reroll: bool = True, device=None,
+                     ant_group=None):
     """The shared-subcarrier multi-user frame
     ``frame_fn(snr_db, draws=None, *, batch=None, generator=None) ->
     MuFrameCounters`` on ``device`` (``cuda`` unless ``device="cpu"``)
     (``mimo_ofdm_tpu/models/link_mu.py:64-185``). Without ``draws`` the
-    frame draws ``batch`` frames from ``generator``."""
+    frame draws ``batch`` frames from ``generator``. ``ant_group``: the
+    frame of this rank's antennas (see the module docstring)."""
     dev = resolve_device(device)
     m = cfg.modem.constel_size
     n_fft, n_sc = cfg.modem.n_fft, cfg.modem.n_sub_carr
@@ -187,22 +204,24 @@ def make_mu_frame_fn(cfg: LinkConfig, n_iters: int, user_positions: np.ndarray, 
     if algorithm != "cnc" and n_usr != 2:
         raise ValueError("cnc_mu/mcnc_mu are 2-user prototypes, matching the "
                          "reference (reference/corrector.py:248-251)")
-    precoder = precoding.make_precoder(cfg.precoding, n_users=n_usr)
-    user_channels = _user_channels(cfg, user_positions, reroll, dev)
+    shard = dict(ant_group=ant_group, n_ant_global=n_ant)
+    precoder = precoding.make_precoder(cfg.precoding, n_users=n_usr, **shard)
+    user_channels = _user_channels(cfg, user_positions, reroll, dev, ant_group)
 
     def frame(snr_db, draws: MuFrameDraws) -> MuFrameCounters:
         h_usr = user_channels(draws)                         # [U, B, n_ant, n_sc]
         v = precoder(h_usr.movedim(0, -3))                   # [B, n_ant, U, n_sc]
-        sat_pow = precoding.pa_sat_power(ibo_db, avg_samp_pow, v, multi_user=True)
-        agc = agc_mod.compute_agc_sc(h_usr, v, ibo_db, n_ant, usr_idx=slice(None))
+        sat_pow = precoding.pa_sat_power(ibo_db, avg_samp_pow, v, multi_user=True, **shard)
+        agc = agc_mod.compute_agc_sc(h_usr, v, ibo_db, n_ant, usr_idx=slice(None),
+                                     ant_group=ant_group)
 
         # clean run: the TX (I)FFT round trip is the identity on the data bins
         if incl_clean:
             bits_c = draws.bits_c.to(dev)
             tx_sc = transmit.precode_symbols(transmit.modulate_users(bits_c, m), v,
                                              sum_users=True)           # [B, n_ant, n_sc]
-            rx = noise_ops.awgn(channels.propagate(h_usr, tx_sc), snr_db,
-                                avg_sym_pow * agc.hk_vk_noise_scaler,
+            rx = noise_ops.awgn(channels.propagate(h_usr, tx_sc, ant_group=ant_group),
+                                snr_db, avg_sym_pow * agc.hk_vk_noise_scaler,
                                 noise_ops.complex_normal(draws.noise_c.to(dev)).movedim(1, 0))
             rx_bits = receivers.standard_receive_sc(rx / agc.hk_vk_agc_sc, m)
             clean_err = bits_ops.count_bit_errors(bits_c.movedim(1, 0), rx_bits, axis=-1).T
@@ -217,7 +236,7 @@ def make_mu_frame_fn(cfg: LinkConfig, n_iters: int, user_positions: np.ndarray, 
             bits_d, constel_size=m, n_fft=n_fft, v=v, pa_model=pa_model,
             sat_power=sat_pow[:, None], rapp_p=cfg.pa.rapp_p_hardness,
             sum_users=True, **mxu)
-        rx = noise_ops.awgn(channels.propagate(h_usr, fd_dist_sc), snr_db,
+        rx = noise_ops.awgn(channels.propagate(h_usr, fd_dist_sc, ant_group=ant_group), snr_db,
                             avg_sym_pow * agc.ak_hk_vk_noise_scaler,
                             noise_ops.complex_normal(draws.noise_d.to(dev)).movedim(1, 0))
         rx_sc = rx / agc.ak_hk_vk_agc_sc                          # [U, B, n_sc]
@@ -233,7 +252,7 @@ def make_mu_frame_fn(cfg: LinkConfig, n_iters: int, user_positions: np.ndarray, 
             replica = receivers.make_mcnc_mu_replica(
                 tx_sym, h_usr, v, agc.ak_hk_vk_agc_sc, constel_size=m,
                 n_fft=n_fft, n_sc=n_sc, pa_model=pa_model, sat_power=sat_pow[:, None],
-                **mxu)
+                ant_group=ant_group, **mxu)
         bits_all, _ = receivers.cnc_iterate(rx_sc, n_iters, m, replica)
         dist_err = bits_ops.count_bit_errors(bits_d.movedim(1, 0), bits_all, axis=-1)
         return MuFrameCounters(clean_err=clean_err.contiguous(),
@@ -243,14 +262,15 @@ def make_mu_frame_fn(cfg: LinkConfig, n_iters: int, user_positions: np.ndarray, 
 
 
 def make_mu_sep_frame_fn(cfg: LinkConfig, n_iters: int, user_positions: np.ndarray, *,
-                         incl_clean: bool = True, reroll: bool = True, device=None):
+                         incl_clean: bool = True, reroll: bool = True, device=None,
+                         ant_group=None):
     """The separate-subcarriers-per-user frame
     (``reference/main_multiuser/main_multiuser_cnc_sep_sc_ber_vs_ebn0.py``,
     ``mimo_ofdm_tpu/models/link_mu.py:188-286``): user ``u`` owns the
     ``u``-th contiguous block of ``n_sc / n_usr`` subcarriers, the precoder
     is single-user MRT of the composed channel, and each user's CNC
     receiver runs over the whole frame and counts only its own block's
-    bits."""
+    bits. ``ant_group``: the frame of this rank's antennas."""
     dev = resolve_device(device)
     m = cfg.modem.constel_size
     n_fft, n_sc = cfg.modem.n_fft, cfg.modem.n_sub_carr
@@ -264,7 +284,7 @@ def make_mu_sep_frame_fn(cfg: LinkConfig, n_iters: int, user_positions: np.ndarr
     avg_samp_pow = cfg.modem.avg_sample_power
     pa_model = cfg.pa.model
     mxu = dict(use_mxu_fft=cfg.use_mxu_fft, mxu_storage=cfg.mxu_fft_storage)
-    user_channels = _user_channels(cfg, user_positions, reroll, dev)
+    user_channels = _user_channels(cfg, user_positions, reroll, dev, ant_group)
     replica = receivers.make_cnc_replica(m, n_fft, n_sc, ibo_db, pa_model, **mxu)
 
     def own_block_errors(bits: torch.Tensor, rx_bits: torch.Tensor) -> torch.Tensor:
@@ -277,16 +297,18 @@ def make_mu_sep_frame_fn(cfg: LinkConfig, n_iters: int, user_positions: np.ndarr
 
     def frame(snr_db, draws: MuFrameDraws) -> MuFrameCounters:
         h_usr = user_channels(draws)                         # [U, B, n_ant, n_sc]
-        v = precoding.mu_sep_carrier_precoder(h_usr.movedim(0, -3))  # [B, n_ant, n_sc]
+        v = precoding.mu_sep_carrier_precoder(h_usr.movedim(0, -3),
+                                              ant_group=ant_group)  # [B, n_ant, n_sc]
         comp_h = precoding.sep_carrier_channel(h_usr.movedim(0, -3))
-        sat_pow = precoding.pa_sat_power(ibo_db, avg_samp_pow, v)
-        agc = agc_mod.compute_agc_sc(comp_h, v, ibo_db, n_ant)
+        sat_pow = precoding.pa_sat_power(ibo_db, avg_samp_pow, v, ant_group=ant_group,
+                                         n_ant_global=n_ant)
+        agc = agc_mod.compute_agc_sc(comp_h, v, ibo_db, n_ant, ant_group=ant_group)
 
         if incl_clean:
             bits_c = draws.bits_c.to(dev)
             tx_sc = transmit.precode_symbols(transmit.modulate_users(bits_c, m), v)
-            rx = noise_ops.awgn(channels.propagate(h_usr, tx_sc), snr_db,
-                                avg_sym_pow * agc.hk_vk_noise_scaler,
+            rx = noise_ops.awgn(channels.propagate(h_usr, tx_sc, ant_group=ant_group),
+                                snr_db, avg_sym_pow * agc.hk_vk_noise_scaler,
                                 noise_ops.complex_normal(draws.noise_c.to(dev)).movedim(1, 0))
             rx_bits = receivers.standard_receive_sc(rx / agc.hk_vk_agc_sc, m)
             clean_err = own_block_errors(bits_c, rx_bits)
@@ -297,7 +319,7 @@ def make_mu_sep_frame_fn(cfg: LinkConfig, n_iters: int, user_positions: np.ndarr
         fd_dist_sc = transmit.array_transmit_sc(
             bits_d, constel_size=m, n_fft=n_fft, v=v, pa_model=pa_model,
             sat_power=sat_pow[:, None], rapp_p=cfg.pa.rapp_p_hardness, **mxu)
-        rx = noise_ops.awgn(channels.propagate(h_usr, fd_dist_sc), snr_db,
+        rx = noise_ops.awgn(channels.propagate(h_usr, fd_dist_sc, ant_group=ant_group), snr_db,
                             avg_sym_pow * agc.ak_hk_vk_noise_scaler,
                             noise_ops.complex_normal(draws.noise_d.to(dev)).movedim(1, 0))
         bits_all, _ = receivers.cnc_iterate(rx / agc.ak_hk_vk_agc_sc, n_iters, m, replica)

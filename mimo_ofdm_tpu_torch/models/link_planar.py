@@ -208,12 +208,15 @@ def make_planar_frame_fn(cfg: LinkConfig, n_iters: int, *,
     def f32sum(x, dim):
         return x.sum(dim, dtype=torch.float32)
 
+    def draw(batch: int, generator: torch.Generator) -> FrameDraws:
+        return FrameDraws.draw(cfg, batch, generator, st, reroll=reroll)
+
     def _frame(snr_db, ibo_db: float, draws: FrameDraws | None,
                batch: int | None, generator: torch.Generator | None
                ) -> FrameCounters:
         ibo_db = float(ibo_db)
         if draws is None:
-            draws = FrameDraws.draw(cfg, batch, generator, st, reroll=reroll)
+            draws = draw(batch, generator)
         hr, hi = channel_planes(draws)                   # [B, n_ant, n_sc] st
 
         # MRT precoder V = conj(H) / sqrt(sum_ant |H|^2)
@@ -300,4 +303,4 @@ def make_planar_frame_fn(cfg: LinkConfig, n_iters: int, *,
         dist_err = bits_ops.count_bit_errors(bits_d, bits_all, axis=-1)
         return FrameCounters(clean_err=clean_err, dist_err=dist_err.T.contiguous())
 
-    return frame_signature(_frame, ibo_as_arg, cfg.pa.ibo_db)
+    return frame_signature(_frame, ibo_as_arg, cfg.pa.ibo_db, draw)

@@ -9,6 +9,13 @@ Shapes, with any leading batch dims:
   n_ant, n_usr, n_sc]`` (the per-transceiver slice layout of
   ``reference/corrector.py:384``). The bookkeeping functions take
   ``multi_user=True`` for it.
+
+Antenna sharding (JAX's ``ant_axis_name``): with ``ant_group``, a
+``torch.distributed`` process group over which the antennas are split,
+the channels and precoders hold this rank's antennas only, and every sum
+over antennas is the local sum plus an all-reduce over the group
+(:mod:`mimo_ofdm_tpu_torch.parallel.collectives`). ``None`` (the
+default) is the unsharded code.
 """
 
 from __future__ import annotations
@@ -17,13 +24,14 @@ import numpy as np
 import torch
 
 from mimo_ofdm_tpu_torch.ops.pa import bussgang_alpha
+from mimo_ofdm_tpu_torch.parallel.collectives import all_reduce_sum, ant_sum
 
 
-def mrt_precoder(h_sc: torch.Tensor) -> torch.Tensor:
+def mrt_precoder(h_sc: torch.Tensor, ant_group=None) -> torch.Tensor:
     """Maximum-ratio transmission with equal-total-TX-power normalization:
     ``V = conj(H) / sqrt(sum_ant |H|^2)`` per subcarrier
     (``reference/antenna_array.py:167-171``)."""
-    norm = torch.sqrt((h_sc.abs() ** 2).sum(-2))[..., None, :]
+    norm = torch.sqrt(ant_sum(h_sc.abs() ** 2, -2, ant_group))[..., None, :]
     return torch.conj(h_sc) / norm.to(h_sc.dtype)
 
 
@@ -34,11 +42,11 @@ def phase_precoder(h_sc: torch.Tensor) -> torch.Tensor:
     return torch.polar(torch.ones_like(ang), ang)
 
 
-def mu_mrt_precoder(h_sc_mu: torch.Tensor) -> torch.Tensor:
+def mu_mrt_precoder(h_sc_mu: torch.Tensor, ant_group=None) -> torch.Tensor:
     """Multi-user MRT, normalized jointly over users: the per-subcarrier
     norm is ``sqrt(sum_usr sum_ant |H_u|^2)`` (``reference/antenna_array.py:201-220``).
     ``[..., n_usr, n_ant, n_sc]`` -> ``V [..., n_ant, n_usr, n_sc]``."""
-    norm = torch.sqrt((h_sc_mu.abs() ** 2).sum((-3, -2)))[..., None, None, :]
+    norm = torch.sqrt(ant_sum(h_sc_mu.abs() ** 2, (-3, -2), ant_group))[..., None, None, :]
     return (torch.conj(h_sc_mu) / norm.to(h_sc_mu.dtype)).transpose(-3, -2)
 
 
@@ -75,7 +83,8 @@ def _pinv_2x2_hermitian(gram: torch.Tensor) -> torch.Tensor:
     return torch.where((lam_hi > 0)[..., None, None], out, torch.zeros_like(out))
 
 
-def zf_precoder(h_sc_mu: torch.Tensor) -> torch.Tensor:
+def zf_precoder(h_sc_mu: torch.Tensor, ant_group=None,
+                n_ant_global: int | None = None) -> torch.Tensor:
     """Zero-forcing precoding batched over frames and subcarriers
     (``reference/antenna_array.py:222-257``): per subcarrier, with the
     user-channel matrix ``Hm [n_usr, n_ant]``, ``V = sqrt(K - U) Hm^H (Hm
@@ -86,17 +95,25 @@ def zf_precoder(h_sc_mu: torch.Tensor) -> torch.Tensor:
     the port takes the pseudo-inverse in closed form with pinv's cutoff,
     which never waits for the device (a batched ``pinv`` on CUDA is an SVD
     that checks its status on the host); for more users it calls
-    ``torch.linalg.pinv`` with JAX's default cutoff, which does."""
+    ``torch.linalg.pinv`` with JAX's default cutoff, which does.
+
+    Under antenna sharding the Gram matrix is the all-reduce of the local
+    ``Hm Hm^H`` (every rank then inverts the same small matrices, by the
+    same closed form for two users, and keeps its own rows of ``V``), the
+    unit-power norm all-reduces the local power, and ``K`` is the global
+    antenna count ``n_ant_global``."""
     n_usr, n_ant = h_sc_mu.shape[-3], h_sc_mu.shape[-2]
+    if ant_group is not None:
+        n_ant = n_ant_global
     hm = h_sc_mu.movedim(-1, -3)                            # [..., n_sc, n_usr, n_ant]
     hm_h = torch.conj(hm.transpose(-2, -1))                 # [..., n_sc, n_ant, n_usr]
-    gram = hm @ hm_h                                        # [..., n_sc, n_usr, n_usr]
+    gram = all_reduce_sum(hm @ hm_h, ant_group)             # [..., n_sc, n_usr, n_usr]
     if n_usr == 2:
         inv = _pinv_2x2_hermitian(gram)
     else:
         inv = torch.linalg.pinv(gram, rtol=_pinv_rtol(n_usr))
     v = float(np.sqrt(np.float32(n_ant - n_usr))) * (hm_h @ inv)
-    pw2 = (v.abs() ** 2).sum((-2, -1), keepdim=True)
+    pw2 = all_reduce_sum((v.abs() ** 2).sum((-2, -1), keepdim=True), ant_group)
     v = v / torch.sqrt(pw2).to(v.dtype)                     # [..., n_sc, n_ant, n_usr]
     return v.movedim(-3, -1)
 
@@ -114,33 +131,37 @@ def sep_carrier_channel(h_sc_mu: torch.Tensor) -> torch.Tensor:
                      dim=-1)
 
 
-def mu_sep_carrier_precoder(h_sc_mu: torch.Tensor, mr_precoding: bool = True
-                            ) -> torch.Tensor:
+def mu_sep_carrier_precoder(h_sc_mu: torch.Tensor, mr_precoding: bool = True,
+                            ant_group=None) -> torch.Tensor:
     """Separate-subcarriers-per-user precoding
     (``reference/antenna_array.py:275-305``): single-user MRT (or phase) of
     the composed channel, a single-user-shaped ``V [..., n_ant, n_sc]``."""
     composed = sep_carrier_channel(h_sc_mu)
-    return mrt_precoder(composed) if mr_precoding else phase_precoder(composed)
+    return mrt_precoder(composed, ant_group) if mr_precoding else phase_precoder(composed)
 
 
-def make_precoder(kind: str, n_users: int = 1):
+def make_precoder(kind: str, n_users: int = 1, ant_group=None,
+                  n_ant_global: int | None = None):
     """Precoder by name (``mimo_ofdm_tpu/models/precoding.py:124-145``):
     ``none``, ``mrt`` or ``phase`` for one user; ``mrt``, ``phase`` or
-    ``zf`` for several, taking ``[..., n_usr, n_ant, n_sc]``."""
+    ``zf`` for several, taking ``[..., n_usr, n_ant, n_sc]``. With
+    ``ant_group`` the MRT norms and the ZF Gram and power all-reduce over
+    it (``n_ant_global``: ZF's ``K``); the phase precoders are per antenna
+    and need no collective."""
     if kind == "none":
         return torch.ones_like
     if n_users == 1:
         if kind == "mrt":
-            return mrt_precoder
+            return lambda h: mrt_precoder(h, ant_group)
         if kind == "phase":
             return phase_precoder
         raise ValueError(f"unknown single-user precoder {kind!r}")
     if kind == "mrt":
-        return mu_mrt_precoder
+        return lambda h: mu_mrt_precoder(h, ant_group)
     if kind == "phase":
         return mu_phase_precoder
     if kind == "zf":
-        return zf_precoder
+        return lambda h: zf_precoder(h, ant_group, n_ant_global)
     raise ValueError(f"unknown multi-user precoder {kind!r}")
 
 
@@ -151,12 +172,18 @@ def precoding_power_per_antenna(v: torch.Tensor, multi_user: bool = False
     return (v.abs() ** 2).sum((-2, -1) if multi_user else -1)
 
 
-def avg_precoding_gain(v: torch.Tensor, multi_user: bool = False) -> torch.Tensor:
+def avg_precoding_gain(v: torch.Tensor, multi_user: bool = False, ant_group=None,
+                       n_ant_global: int | None = None) -> torch.Tensor:
     """Mean precoding power gain over antennas x subcarriers, ``[...]``;
     for several users the per-(antenna, bin) power summed over users
-    (``reference/antenna_array.py:328-341``)."""
+    (``reference/antenna_array.py:328-341``). Under antenna sharding: the
+    all-reduced power over the global ``n_ant_global x n_sc`` cells."""
     pw = v.abs() ** 2
-    return (pw.sum(-2) if multi_user else pw).mean((-2, -1))
+    if multi_user:
+        pw = pw.sum(-2)
+    if ant_group is None:
+        return pw.mean((-2, -1))
+    return all_reduce_sum(pw.sum((-2, -1)), ant_group) / (n_ant_global * pw.shape[-1])
 
 
 def per_antenna_ibo_db(ibo_db, vk_pow_vec: torch.Tensor, n_sub_carr: int,
@@ -176,10 +203,11 @@ def per_antenna_alpha(ibo_db, vk_pow_vec: torch.Tensor, n_sub_carr: int,
 
 
 def pa_sat_power(ibo_db: float, avg_sample_power: float, v: torch.Tensor,
-                 multi_user: bool = False) -> torch.Tensor:
+                 multi_user: bool = False, ant_group=None,
+                 n_ant_global: int | None = None) -> torch.Tensor:
     """Per-frame PA saturation power under constant IBO: every PA's expected
     average power is rescaled by the mean precoding gain
     (``reference/antenna_array.py:313-360``):
     ``sat = 10^(ibo/10) * avg_sample_power * avg_precoding_gain``."""
     return (10.0 ** (ibo_db / 10.0) * avg_sample_power
-            * avg_precoding_gain(v, multi_user))
+            * avg_precoding_gain(v, multi_user, ant_group, n_ant_global))

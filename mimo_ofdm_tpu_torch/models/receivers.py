@@ -103,20 +103,23 @@ def make_mcnc_replica(h_sc: torch.Tensor, v: torch.Tensor,
                       agc_corr_sc: torch.Tensor, *, constel_size: int,
                       n_fft: int, n_sc: int, pa_model: str = "softlim",
                       sat_power, rapp_p: float = 1.1, toi_coeff=0.0,
-                      use_mxu_fft: bool = False, mxu_storage: str = "float32"):
+                      use_mxu_fft: bool = False, mxu_storage: str = "float32",
+                      ant_group=None):
     """Replica of the full TX array + channel + AGC
     (``reference/corrector.py:198-205``): detected symbols ``[..., n_sc]``
     are precoded, clipped per antenna, propagated through ``h_sc [...,
     n_ant, n_sc]`` on the data bins and divided by the ``sum_k a_k H_k V_k``
     AGC vector ``agc_corr_sc [..., n_sc]``. ``sat_power`` / ``toi_coeff``
-    are per row of ``[..., n_ant]``."""
+    are per row of ``[..., n_ant]``. With ``ant_group``, ``h_sc`` and
+    ``v`` hold this rank's antennas and the propagation all-reduces over
+    the group (``mimo_ofdm_tpu/models/receivers.py:138-162``)."""
     def replica(det_sym: torch.Tensor) -> torch.Tensor:
         per_ant_sc = transmit.precode_symbols(det_sym, v)
         fd_dist_sc = transmit.ifft_pa_fft_sc(per_ant_sc, n_fft, pa_model,
                                              sat_power, rapp_p, toi_coeff,
                                              use_mxu_fft=use_mxu_fft,
                                              mxu_storage=mxu_storage)
-        return channels.propagate(h_sc, fd_dist_sc) / agc_corr_sc
+        return channels.propagate(h_sc, fd_dist_sc, ant_group=ant_group) / agc_corr_sc
 
     return replica
 
@@ -144,7 +147,8 @@ def make_mcnc_mu_replica(usr_symbols: torch.Tensor, h_sc: torch.Tensor,
                          v: torch.Tensor, agc_corr_sc: torch.Tensor, *,
                          constel_size: int, n_fft: int, n_sc: int,
                          pa_model: str = "softlim", sat_power, rapp_p: float = 1.1,
-                         use_mxu_fft: bool = False, mxu_storage: str = "float32"):
+                         use_mxu_fft: bool = False, mxu_storage: str = "float32",
+                         ant_group=None):
     """Multi-user MCNC replica (``reference/corrector.py:405-451``) of every
     user at once, users first: user ``u``'s detected symbols and the known
     symbols of the other users, in user order, go through the full
@@ -154,7 +158,10 @@ def make_mcnc_mu_replica(usr_symbols: torch.Tensor, h_sc: torch.Tensor,
     symbols, of which user ``u``'s row is replaced by its detection; ``h_sc
     [n_usr, ..., n_ant, n_sc]`` and ``agc_corr_sc [n_usr, ..., n_sc]``. One
     chain pass covers all users' antenna rows; user ``u``'s slice equals
-    the JAX package's two-user replica with ``usr_idx=u``."""
+    the JAX package's two-user replica with ``usr_idx=u``. With
+    ``ant_group``, ``h_sc`` and ``v`` hold this rank's antennas and the
+    propagation all-reduces over the group
+    (``mimo_ofdm_tpu/models/receivers.py:188-210``)."""
     n_usr = usr_symbols.shape[-2]
     own = torch.eye(n_usr, dtype=torch.bool, device=usr_symbols.device).view(
         n_usr, *([1] * (usr_symbols.ndim - 2)), n_usr, 1)
@@ -165,6 +172,6 @@ def make_mcnc_mu_replica(usr_symbols: torch.Tensor, h_sc: torch.Tensor,
         fd_dist_sc = transmit.ifft_pa_fft_sc(per_ant_sc, n_fft, pa_model, sat_power,
                                              rapp_p, use_mxu_fft=use_mxu_fft,
                                              mxu_storage=mxu_storage)
-        return channels.propagate(h_sc, fd_dist_sc) / agc_corr_sc
+        return channels.propagate(h_sc, fd_dist_sc, ant_group=ant_group) / agc_corr_sc
 
     return replica

@@ -118,6 +118,12 @@ class LinkConfig:
     # Channel-block storage: "bfloat16" / "float32" planes (the planar
     # path, models/link_planar.py) or "complex64" (the complex64 branch of
     # models/link.py, which also takes every config the planes do not).
+    # Sharding (parallel/sharded.py): an antenna-sharded (tp) run takes the
+    # complex64 branch, as in the JAX package, but it draws the same
+    # channels as a single-device run of the same config and key: every
+    # rank draws the round's global FrameDraws and keeps its antennas'
+    # rows of them. The JAX package's tp runs draw other fades per shard
+    # (mimo_ofdm_tpu/utils/config.py:154-161); the port has no such limit.
     channel_storage: str = "bfloat16"
 
     _MXU_STORAGE_VALUES = ("float32", "bfloat16")

@@ -45,6 +45,58 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "unknown"
 
 
+@contextlib.contextmanager
+def wallclock(label: str = "", verbose: bool = True):
+    """Wall-clock bracket in the reference's print format
+    (``mimo_ofdm_tpu/utils/profiling.py:12-18``). It times the host: work
+    queued on a CUDA stream inside it is timed only if the body waits for
+    it."""
+    t0 = time.time()
+    yield
+    if verbose:
+        print(f"--- Computation time: {time.time() - t0:f} --- {label}")
+
+
+@contextlib.contextmanager
+def trace(logdir: str = "mimo_ofdm_tpu_torch_trace"):
+    """``torch.profiler`` over the body, CPU and (with a card) CUDA
+    activities; on exit the Chrome trace is written to
+    ``logdir/trace.json`` (open it in ``chrome://tracing`` or Perfetto).
+    Yields the profiler. The JAX package's ``jax.profiler`` counterpart is
+    ``mimo_ofdm_tpu/utils/profiling.py:21-38``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+class ThroughputMeter:
+    """Frames/s and bits/s counter for sweep points
+    (``mimo_ofdm_tpu/utils/profiling.py:41-60``), on the host's clock."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.frames = 0
+        self.bits = 0
+
+    def add(self, frames: int, bits: int):
+        self.frames += frames
+        self.bits += bits
+
+    @property
+    def frames_per_s(self) -> float:
+        return self.frames / max(time.perf_counter() - self.t0, 1e-9)
+
+    @property
+    def bits_per_s(self) -> float:
+        return self.bits / max(time.perf_counter() - self.t0, 1e-9)
+
+
 def _kernel_times(prof) -> dict[str, list[float]]:
     """Device time (us) and count of every kernel in the trace, by name."""
     out: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])

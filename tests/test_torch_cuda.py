@@ -442,3 +442,51 @@ def test_siso_round_cuda_matches_cpu(cuda):
         for a, b in zip(out[False], cpu):
             ta, tb = a.sum(0).double(), b.sum(0).double()
             assert torch.all((ta - tb).abs() <= 0.02 * torch.clamp(tb, min=100))
+
+
+# --- scale-out -----------------------------------------------------------------
+
+def test_world_size_one_nccl_sharded_rounds(cuda):
+    """A world-size-1 NCCL job on the card: the sharded round on its (1, 1)
+    mesh equals ``make_round_fn`` for the same ``(key, idx)``, with the
+    kernel's 1 + n_iters + 1 launches a round; the sharded multi-user
+    round (ZF + MCNC-MU) equals ``make_mu_round_fn`` and, after a warm-up
+    round, makes no call that synchronizes with the device."""
+    import socket
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from mimo_ofdm_tpu_torch.models import link_mu
+    from mimo_ofdm_tpu_torch.parallel import multihost, sharded
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0, backend="nccl",
+                         timeout=timedelta(seconds=60))
+    try:
+        mesh = sharded.make_mesh(1, 1)
+        assert mesh.shape == {"dp": 1, "tp": 1} and mesh.dp_group is None
+        cfg = config.LinkConfig(modem=config.ModemConfig(n_fft=1024, n_sub_carr=512),
+                                array=config.ArrayConfig(n_elements=8),
+                                channel=config.ChannelConfig(model="rayleigh"),
+                                rx=config.RxConfig(algorithm="mcnc"))
+        before = KERNEL.launches
+        got = sharded.make_sharded_round_fn(cfg, 2, 4, mesh, device=cuda)(0, 3, 20.0)
+        torch.cuda.synchronize()
+        assert KERNEL.launches - before == 1 + 2 + 1
+        want = link.make_round_fn(cfg, 2, 4, device=cuda)(0, 3, 20.0)
+        assert torch.equal(got.cpu(), want.cpu())
+        mcfg = _mu_cfg("zf", "mcnc_mu", "bfloat16")
+        round_fn = sharded.make_sharded_mu_round_fn(mcfg, 2, 4, mesh, device=cuda)
+        round_fn(0, 0, 20.0)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = round_fn(0, 1, 20.0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = link_mu.make_mu_round_fn(mcfg, 2, 4, device=cuda)(0, 1, 20.0)
+        assert torch.equal(got.cpu(), want.cpu())
+    finally:
+        dist.destroy_process_group()

@@ -59,9 +59,12 @@ ANALYSIS = {"reproduce_reference_curve", "beampattern", "mrt_radiation_pattern",
             "siso_rayleigh_zf_cnc"}
 
 
+SCALING = {"weak_scaling"}              # tests/test_torch_sharding.py runs it
+
+
 def test_registry_is_the_ported_experiments():
-    assert set(EXPERIMENTS) == set(RUNS) | CODED | ANALYSIS
-    assert set(EXPERIMENTS) <= set(JAX_EXPERIMENTS)
+    assert set(EXPERIMENTS) == set(RUNS) | CODED | ANALYSIS | SCALING
+    assert set(EXPERIMENTS) == set(JAX_EXPERIMENTS)
 
 
 @pytest.mark.parametrize("name", sorted(RUNS))
