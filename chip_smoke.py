@@ -93,6 +93,18 @@ Phases, each printing one JSON line:
    tp 2 on canonical LOS (complex64 branch, f32 chain) within JAX's
    tolerance for non-exact sharding with the differing bits printed, and
    10 launches a round on each rank.
+15. components: the component API at the canonical width (canonical LOS,
+   the complex64 branch, 128 frames at Eb/N0 15 dB): (a) one frame round
+   per receiver on fixed draws, then the same bits, noise and RX offsets
+   through ``transmit.array_transmit_fd`` -> ``channels.propagate`` ->
+   ``awgn`` -> ``agc.compute_agc`` -> ``receivers.equalize`` into
+   ``standard_receive``, ``cnc_receive`` and ``mcnc_receive`` (torch.fft
+   replicas), every counter within 5 binomial sd of the frame round's;
+   (b) the same frames through ``cnc_iterate`` with the kernel-backed
+   replicas, 9 launches a receive and at most 1e-4 of the bits differing
+   at any pass; (c) ``fused_ifft_clip_fft`` at ``[6400, 4096]`` against
+   its plain version, one launch, 1e-5; (d) the CP modem's round trip at
+   ``[128, 64, 2048]``, ``cp_len`` 128, 1e-6.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -821,9 +833,9 @@ def counted(fp, fn):
     return out, kern.launches, time.perf_counter() - t0
 
 
-def check(ok: bool, what: str, line: dict) -> None:
+def check(ok: bool, what: str, line: dict, phase: str = "analysis") -> None:
     if not ok:
-        raise AssertionError(f"analysis: {what}: {line}")
+        raise AssertionError(f"{phase}: {what}: {line}")
 
 
 def db(x):
@@ -1483,6 +1495,209 @@ def scale_out(fp, config, link, link_mu, link_ldpc, ber_sweeps, dev, batch: int,
     return out
 
 
+# --- phase 15: the component API ----------------------------------------------
+
+COMPONENTS_SEED = 15
+MAX_DIFF_BITS = 1e-4            # (b): kernel-backed receivers against torch.fft's, a pass
+CLIP_TOL = 1e-5                 # (c): fused_ifft_clip_fft against its plain version
+MODEM_TOL = 1e-6                # (d): the CP modem's round trip, relative L2
+
+
+def expect(ok: bool, what: str, line: dict) -> None:
+    check(ok, what, line, "components")
+
+
+def within_binomial(a: int, b: int, n: int, sds: float = 5.0) -> bool:
+    """``|a - b|`` within ``sds`` binomial standard deviations of their
+    pooled error rate over ``n`` bits."""
+    p = (a + b) / (2.0 * n)
+    return abs(a - b) <= sds * float(np.sqrt(n * p * (1.0 - p)))
+
+
+def component_frames(cfg, draws, snr: float, dev):
+    """Phase 15 (a)'s frames through the component API on the frame
+    round's draws: the full-band channel (``make_channel_fn`` on all
+    ``n_fft`` bins), MRT, ``compute_agc``, ``array_transmit_fd`` on
+    ``torch.fft``, ``propagate``, ``awgn`` with the draws' data-bin normals
+    (zero out of band) and ``equalize``. Returns the equalized clean and
+    distorted frames and what the MCNC receiver needs."""
+    from mimo_ofdm_tpu_torch.models import agc, channels, link, precoding, receivers, transmit
+    from mimo_ofdm_tpu_torch.ops import noise, ofdm
+
+    m = cfg.modem.constel_size
+    n_fft, n_sc, n_ant = cfg.modem.n_fft, cfg.modem.n_sub_carr, cfg.array.n_elements
+    ibo = cfg.pa.ibo_db
+    avg_sym_pow = cfg.modem.avg_symbol_power
+    tx_pos, freqs, rx_base = link.link_static(cfg, dev)
+    h_fd = link.make_channel_fn(cfg, freqs, rx_base, True)(tx_pos, draws)
+    v = precoding.mrt_precoder(ofdm.extract_subcarriers(h_fd, n_sc))
+    sat = precoding.pa_sat_power(ibo, cfg.modem.avg_sample_power, v)[:, None]
+    st = agc.compute_agc(ofdm.extract_subcarriers(h_fd, n_sc), v, ibo, n_ant, n_fft)
+
+    def received(bits, dist, normals, scaler, agc_nfft):
+        fd = transmit.array_transmit_fd(bits, constel_size=m, n_fft=n_fft, v=v,
+                                        sat_power=sat, skip_dist=not dist)
+        rx = noise.awgn(channels.propagate(h_fd, fd), snr, avg_sym_pow * scaler,
+                        noise.complex_normal(ofdm.map_subcarriers(normals, n_fft)))
+        return receivers.equalize(rx, agc_nfft)
+
+    rx_c = received(draws.bits_c, False, draws.noise_c, st.hk_vk_noise_scaler,
+                    st.hk_vk_agc_nfft)
+    rx_d = received(draws.bits_d, True, draws.noise_d, st.ak_hk_vk_noise_scaler,
+                    st.ak_hk_vk_agc_nfft)
+    return rx_c, rx_d, h_fd, v, sat, st
+
+
+def components(fp, config, link, dev, snr: float, card: str = "", batch: int = 128,
+               n_ant: int = 64, small: bool = False) -> dict:
+    """Phase 15: the component API at the canonical width (canonical LOS,
+    the complex64 branch's configuration of phase 8, f32 chain).
+
+    (a) one round of the complex64 frame path per receiver (CNC, MCNC) on
+    fixed draws, then the same bits, noise and RX offsets through the
+    component API (:func:`component_frames`) into ``standard_receive``,
+    ``cnc_receive`` and ``mcnc_receive``: sane BERs, the clean standard
+    receive at or below CNC's iteration 0, MCNC's iteration 8 no worse
+    than its iteration 0, and every counter within 5 binomial sd of the
+    frame round's; (b) the same equalized frames through ``cnc_iterate``
+    with the kernel-backed replicas (``use_mxu_fft=True``, f32 planes): 9
+    launches a receive, at most ``MAX_DIFF_BITS`` of the bits differing
+    from (a)'s at any pass; (c) ``fused_ifft_clip_fft`` at the PSD shape
+    ``[6400, 4096]`` against its plain version, one launch, within
+    ``CLIP_TOL``, with its time; (d) the CP modem's round trip at ``[128,
+    64, 2048]``, ``cp_len`` 128, within ``MODEM_TOL``. ``n_ant`` and
+    ``small`` (n_fft 256, 64 rows at (c)) exist for rehearsals on the
+    CPU."""
+    from mimo_ofdm_tpu_torch.models import receivers
+    from mimo_ofdm_tpu_torch.ops import bits as bits_ops
+    from mimo_ofdm_tpu_torch.ops import ofdm
+
+    kern = fp.fused_ifft_pa_fft
+    t_phase = time.perf_counter()
+    base = scale_cfg(config, "los", "cnc", n_ant, small, channel_storage="complex64",
+                     mxu_fft_storage="float32")
+    m, n_sc, n_fft = base.modem.constel_size, base.modem.n_sub_carr, base.modem.n_fft
+    n_bits = batch * base.modem.n_bits_per_ofdm_sym
+    draws = link.FrameDraws.draw(base, batch,
+                                 torch.Generator(device=dev).manual_seed(COMPONENTS_SEED))
+    out = {}
+
+    # (a) the frame round, then the component API on its draws
+    frame_counts = {}
+    for alg in ("cnc", "mcnc"):
+        cfg = base.replace(rx=dataclasses.replace(base.rx, algorithm=alg))
+        c, launches, _ = counted(fp, lambda: link.make_frame_fn(cfg, N_ITERS, device=dev)(
+            snr, draws))
+        frame_counts[alg] = [int(c.clean_err.sum())] + c.dist_err.sum(0).cpu().tolist()
+        out[f"components_frame_{alg}"] = {"launches": launches,
+                                          "expected_launches": 1 + N_ITERS + 1}
+        expect(launches == 1 + N_ITERS + 1, f"frame {alg} launches",
+               out[f"components_frame_{alg}"])
+
+    def api():
+        rx_c, rx_d, h_fd, v, sat, st = component_frames(base, draws, snr, dev)
+        kw = dict(constel_size=m, n_sc=n_sc)
+        return (rx_d, h_fd, v, sat, st,
+                receivers.standard_receive(rx_c, n_sc, m),
+                receivers.cnc_receive(rx_d, N_ITERS, ibo_db=base.pa.ibo_db, **kw),
+                receivers.mcnc_receive(rx_d, N_ITERS, h_fd, v, st.ak_hk_vk_agc_nfft,
+                                       sat_power=sat, **kw))
+    (rx_d, h_fd, v, sat, st, clean_bits, cnc_bits, mcnc_bits), launches, seconds = counted(
+        fp, api)
+    bits_d = draws.bits_d.to(dev)
+    clean = int(bits_ops.count_bit_errors(draws.bits_c.to(dev), clean_bits))
+    api_counts = {alg: [clean] + bits_ops.count_bit_errors(bits_d, b, axis=-1).sum(-1).cpu()
+                  .tolist() for alg, b in (("cnc", cnc_bits), ("mcnc", mcnc_bits))}
+    line = {"path": "api_torch_fft", "batch": batch, "snr_db": snr, "n_bits": n_bits,
+            "api": api_counts, "frame_round": frame_counts,
+            "ber": {k: [x / n_bits for x in v_] for k, v_ in api_counts.items()},
+            "launches": launches, "seconds": seconds, "card": card}
+    print(json.dumps({"phase": "components", **line}), flush=True)
+    for alg, counts in api_counts.items():
+        ber = [x / n_bits for x in counts]
+        expect(all(0 <= b < 0.5 for b in ber), f"{alg} BER", line)
+        expect(all(within_binomial(a, b, n_bits) for a, b in zip(counts, frame_counts[alg])),
+               f"{alg}: a counter beyond 5 sd of the frame round's", line)
+    expect(api_counts["cnc"][0] <= api_counts["cnc"][1], "clean above CNC iteration 0", line)
+    expect(api_counts["mcnc"][-1] <= api_counts["mcnc"][1],
+           "MCNC iteration 8 worse than iteration 0", line)
+    expect(launches == 0, "the torch.fft receivers launched the kernel", line)
+    out["components_api"] = line
+
+    # (b) the same frames through the kernel-backed replicas
+    mxu = dict(use_mxu_fft=True, mxu_storage="float32")
+    rx_sc = ofdm.extract_subcarriers(rx_d, n_sc)
+    replicas = {
+        "cnc": receivers.make_cnc_replica(m, n_fft, n_sc, base.pa.ibo_db, **mxu),
+        "mcnc": receivers.make_mcnc_replica(
+            ofdm.extract_subcarriers(h_fd, n_sc), v,
+            ofdm.extract_subcarriers(st.ak_hk_vk_agc_nfft, n_sc), constel_size=m,
+            n_fft=n_fft, n_sc=n_sc, sat_power=sat, **mxu)}
+    torch_fft_bits = {"cnc": cnc_bits, "mcnc": mcnc_bits}
+    for alg, replica in replicas.items():
+        (bits_k, _), launches, seconds = counted(
+            fp, lambda: receivers.cnc_iterate(rx_sc, N_ITERS, m, replica))
+        diff = (bits_k != torch_fft_bits[alg]).flatten(1).sum(-1).cpu().tolist()
+        line = {"path": f"kernel_replica_{alg}", "differing_bits": diff,
+                "max_share": max(diff) / n_bits, "tol": MAX_DIFF_BITS,
+                "launches": launches, "expected_launches": N_ITERS + 1,
+                "seconds": seconds, "card": card}
+        print(json.dumps({"phase": "components", **line}), flush=True)
+        expect(launches == N_ITERS + 1, f"kernel replica {alg} launches", line)
+        expect(line["max_share"] <= MAX_DIFF_BITS, f"kernel replica {alg} differs", line)
+        out[f"components_kernel_{alg}"] = line
+
+    # (c) fused_ifft_clip_fft by name at the PSD shape
+    rows = 64 if small else 6400
+    g = torch.Generator(device=dev).manual_seed(COMPONENTS_SEED)
+    x = torch.complex(torch.randn(rows, fp.N, generator=g, device=dev),
+                      torch.randn(rows, fp.N, generator=g, device=dev))
+    sat_c = 1.5
+    y, launches, _ = counted(fp, lambda: fp.fused_ifft_clip_fft(x, sat_c))
+    ones = torch.ones(rows, device=dev)
+    pr, pi = fp.fused_ifft_pa_fft_plain(x.real, x.imag, ones * sat_c, ones * 0.0,
+                                        pa_model="softlim", n_fft=fp.N, mode="full")
+    ref = torch.complex(pr, pi)
+    err = rel_err(y, ref)
+    line = {"path": "fused_ifft_clip_fft", "shape": [rows, fp.N], "rel_err": err,
+            "max_abs_err": float((y - ref).abs().max()), "tol": CLIP_TOL,
+            "launches": launches, "expected_launches": 1, "card": card}
+    if dev.type == "cuda":
+        # complex64 in and out: each input byte read once, each output byte
+        # written once; the split-radix operations of two transforms a row
+        bytes_ms = 2 * x.numel() * x.element_size() / H100_BYTES_PER_S * 1e3
+        ops_ms = rows * fp.flops_per_row(fp.N, "full") / H100_F32_FLOPS * 1e3
+        line.update(ms=time_ms(lambda: fp.fused_ifft_clip_fft(x, sat_c)),
+                    plain_ms=time_ms(lambda: fp.fused_ifft_pa_fft_plain(
+                        x.real, x.imag, ones * sat_c, ones * 0.0, pa_model="softlim",
+                        n_fft=fp.N, mode="full")),
+                    library_ms=time_ms(lambda: ofdm.td_to_fd(ofdm.fd_to_td(x))),
+                    bound_ms=max(bytes_ms, ops_ms),
+                    bound_by="bytes" if bytes_ms > ops_ms else "operations")
+    print(json.dumps({"phase": "components", **line}), flush=True)
+    expect(launches == 1 and err <= CLIP_TOL and bool(torch.isfinite(y).all()),
+           "fused_ifft_clip_fft", line)
+    out["components_fused_ifft_clip_fft"] = line
+
+    # (d) the CP modem's round trip
+    n_frames = 8 if small else 128
+    sym = torch.complex(torch.randn(n_frames, n_ant, n_sc, generator=g, device=dev),
+                        torch.randn(n_frames, n_ant, n_sc, generator=g, device=dev))
+    cp_len = base.modem.cp_len
+    td = ofdm.ofdm_modulate(sym, n_fft, cp_len)
+    back = ofdm.ofdm_demodulate(td, n_sc, cp_len)
+    line = {"path": "ofdm_modem", "shape": list(sym.shape), "cp_len": cp_len,
+            "td_shape": list(td.shape), "rel_err": rel_err(back, sym), "tol": MODEM_TOL,
+            "launches": 0, "card": card}
+    print(json.dumps({"phase": "components", **line}), flush=True)
+    expect(tuple(td.shape) == (n_frames, n_ant, n_fft + cp_len)
+           and line["rel_err"] <= MODEM_TOL, "CP modem round trip", line)
+    out["components_ofdm_modem"] = line
+    emit("components", seconds=time.perf_counter() - t_phase,
+         launches=sum(p["launches"] for p in out.values()), card=card)
+    return out
+
+
 def timing(fp, ofdm, dev, batch: int, card: str = "", n_fft: int = 4096,
            n_sc: int = 2048) -> dict:
     """Phase 6: kernel, plain and torch.fft chain at the main path's shapes."""
@@ -1579,6 +1794,8 @@ def main() -> int:
     snr_coded = float(metrics.ebn0_to_snr(CODED_EBN0_DB[0], 2048, 2048, 64))
     paths.update(scale_out(fp, config, link, link_mu, link_ldpc, ber_sweeps, dev, args.batch,
                            snr_los, snr_coded, smi))
+    paths.update(components(fp, config, link, dev, snr_los, smi, args.batch))
+    clip = paths["components_fused_ifft_clip_fft"]
 
     tx = times["tx"]
     launches = sum(p["launches"] for p in paths.values())
@@ -1601,6 +1818,9 @@ def main() -> int:
                                                   "library_ms", "bound_ms", "bound_by",
                                                   "bound_share", "max_abs_err")}
                             for k, t in analysis_times.items()},
+        "entry_points": {"fused_ifft_clip_fft": {
+            f: clip[f] for f in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by", "rel_err", "max_abs_err", "launches")}},
         "card": smi}]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,8 +1,11 @@
 """mimo_ofdm_tpu_torch — the PyTorch/CUDA port of ``mimo_ofdm_tpu``.
 
 The JAX package ``mimo_ofdm_tpu`` stays the reference; this package mirrors
-its layout (``ops/``, ``models/``, ``kernels/``, ``utils/``) and its public
-function names, so each function has a counterpart of the same name here.
+its layout (``ops/``, ``models/``, ``kernels/``, ``parallel/``,
+``experiments/``, ``utils/``) and its public names. Each public JAX name
+and function parameter has a counterpart of the same name here, or an
+entry with its counterpart or reason in the name map that
+``tests/test_torch_api_coverage.py`` checks.
 
 * Plain functions on tensors with a leading batch dimension where JAX used
   ``vmap``; an explicit ``device`` and explicit ``torch.Generator`` objects

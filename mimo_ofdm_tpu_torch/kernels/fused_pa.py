@@ -6,7 +6,9 @@
 coefficient per row, and returns planes of the same shape and dtype:
 
 * ``mode="full"``: ``FFT(PA(IFFT(x)))`` over all ``n_fft`` bins, the
-  contract of the TPU kernel ``mimo_ofdm_tpu/kernels/fused_pa.py::fused_ifft_clip_fft``;
+  contract of the TPU kernel ``mimo_ofdm_tpu/kernels/fused_pa.py::fused_ifft_clip_fft``,
+  which :func:`fused_ifft_clip_fft` keeps by name (complex frames of
+  ``N = 4096`` bins, soft limiter);
 * ``mode="sc"``: ``extract_sc(FFT(PA(IFFT(map_sc(x)))))`` over ``n_sc`` data
   bins in ``[neg | pos]`` order, the contract of
   ``mimo_ofdm_tpu/ops/mxu_fft.py::fused_sc_ifft_pa_fft_planar_io``.
@@ -48,6 +50,7 @@ from mimo_ofdm_tpu_torch.ops import ofdm
 from mimo_ofdm_tpu_torch.ops.pa import PA_MODELS, apply_pa_planar
 
 MODES = ("full", "sc")
+N = 4096             # the one length fused_ifft_clip_fft takes, as the TPU kernel
 N_FFT_RANGE = (256, 4096)
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE = _PACKAGE_DIR / "csrc" / "fused_pa.cu"
@@ -96,10 +99,10 @@ def fused_ifft_pa_fft_plain(xr, xi, sat, cubic_coeff, *, pa_model: str,
     n_io = x.shape[-1]
     if mode == "sc":
         x = ofdm.map_subcarriers(x, n_fft)
-    td = torch.fft.ifft(x, dim=-1, norm="ortho")
+    td = ofdm.fd_to_td(x)
     pr, pi = apply_pa_planar(td.real, td.imag, pa_model, sat[..., None],
                              rapp_p, cubic_coeff[..., None])
-    fd = torch.fft.fft(torch.complex(pr, pi), dim=-1, norm="ortho")
+    fd = ofdm.td_to_fd(torch.complex(pr, pi))
     if mode == "sc":
         fd = ofdm.extract_subcarriers(fd, n_io)
     return fd.real.to(xr.dtype), fd.imag.to(xi.dtype)
@@ -376,3 +379,22 @@ def fused_ifft_pa_fft(xr: torch.Tensor, xi: torch.Tensor, sat,
 
 fused_ifft_pa_fft.launches = 0
 fused_ifft_pa_fft.force_plain = False
+
+
+def fused_ifft_clip_fft(x_fd: torch.Tensor, sat_power) -> torch.Tensor:
+    """``FFT(softlimit(IFFT(x_fd)))`` with ortho norms: the kernel's
+    ``full`` mode on complex64 ``[..., 4096]`` frames with one scalar
+    saturation power (a Python float or a 0-d tensor), returning complex64
+    of the same shape (``mimo_ofdm_tpu/kernels/fused_pa.py:113-152``). Like
+    the TPU kernel it takes ``N = 4096`` bins and nothing else. A CUDA
+    tensor launches the kernel (counted in ``fused_ifft_pa_fft.launches``),
+    a CPU tensor runs the plain version."""
+    if x_fd.dtype != torch.complex64:
+        raise ValueError(f"x_fd must be complex64, got {x_fd.dtype}")
+    if x_fd.shape[-1] != N:
+        raise ValueError(f"fused_ifft_clip_fft takes {N} bins, got {x_fd.shape[-1]}")
+    if isinstance(sat_power, torch.Tensor) and sat_power.ndim:
+        raise ValueError("sat_power must be a scalar")
+    outr, outi = fused_ifft_pa_fft(x_fd.real.contiguous(), x_fd.imag.contiguous(),
+                                   sat_power, pa_model="softlim", n_fft=N, mode="full")
+    return torch.complex(outr, outi)

@@ -1,5 +1,5 @@
-"""Receiver AGC / equalization vectors and noise scalers on the data
-subcarriers (port of ``mimo_ofdm_tpu/models/agc.py:42-55,110-149``).
+"""Receiver AGC / equalization vectors and noise scalers
+(port of ``mimo_ofdm_tpu/models/agc.py``).
 
 * ``hk_vk_agc_sc``    = ``sum_ant H o V``, the effective SISO channel of the
   clean signal;
@@ -8,6 +8,11 @@ subcarriers (port of ``mimo_ofdm_tpu/models/agc.py:42-55,110-149``).
 * ``*_noise_scaler``  = mean ``|.|^2`` over subcarriers, which sets the AWGN
   power so that the post-AGC SNR is the requested one
   (``reference/mp_model.py:163,212,290-329``).
+
+The frames work on the data subcarriers (:func:`compute_agc_sc`); the
+full-band form (:func:`compute_agc`) embeds the same vectors into the
+``n_fft`` grid with ones in the unused bins (``reference/mp_model.py:307-309,
+324-326``), so out-of-band samples pass the divide unscaled.
 """
 
 from __future__ import annotations
@@ -18,7 +23,17 @@ import torch
 
 from mimo_ofdm_tpu_torch.models.precoding import (per_antenna_alpha,
                                                   precoding_power_per_antenna)
+from mimo_ofdm_tpu_torch.ops.ofdm import map_subcarriers
 from mimo_ofdm_tpu_torch.parallel.collectives import ant_sum
+
+
+class AgcState(NamedTuple):
+    """Full-band AGC state of a batch of frames."""
+    hk_vk_agc_nfft: torch.Tensor        # [..., n_fft] clean-signal equalizer
+    hk_vk_noise_scaler: torch.Tensor    # [...]
+    ak_hk_vk_agc_nfft: torch.Tensor     # [..., n_fft] distorted-signal equalizer
+    ak_hk_vk_noise_scaler: torch.Tensor  # [...]
+    ak_vect: torch.Tensor               # [..., n_ant] per-antenna Bussgang gains
 
 
 class AgcStateSc(NamedTuple):
@@ -71,4 +86,21 @@ def compute_agc_sc(h_sc: torch.Tensor, v: torch.Tensor, ibo_db: float,
         ak_hk_vk_agc_sc=ak_hk_vk_avg,
         ak_hk_vk_noise_scaler=(ak_hk_vk_avg.abs() ** 2).mean(-1),
         ak_vect=ak_vect,
+    )
+
+
+def compute_agc(h_sc: torch.Tensor, v: torch.Tensor, ibo_db: float, n_ant: int,
+                n_fft: int, usr_idx: int | None = None, ant_group=None) -> AgcState:
+    """:func:`compute_agc_sc` with the two equalizers embedded into the
+    ``[..., n_fft]`` grid, ones in DC and the guard band
+    (``mimo_ofdm_tpu/models/agc.py:58-107``). Arguments as
+    :func:`compute_agc_sc`; ``usr_idx`` picks the served user of a
+    multi-user precoder."""
+    sc = compute_agc_sc(h_sc, v, ibo_db, n_ant, usr_idx=usr_idx, ant_group=ant_group)
+    return AgcState(
+        hk_vk_agc_nfft=map_subcarriers(sc.hk_vk_agc_sc, n_fft, fill_value=1.0),
+        hk_vk_noise_scaler=sc.hk_vk_noise_scaler,
+        ak_hk_vk_agc_nfft=map_subcarriers(sc.ak_hk_vk_agc_sc, n_fft, fill_value=1.0),
+        ak_hk_vk_noise_scaler=sc.ak_hk_vk_noise_scaler,
+        ak_vect=sc.ak_vect,
     )

@@ -357,8 +357,7 @@ def combined_psd(cfg: LinkConfig, bits: torch.Tensor, v: torch.Tensor, h: torch.
     desired, distortion = bussgang_split(fd_dist * h, fd_clean * h, ak)
     out = []
     for sig in (desired, distortion):
-        td = torch.fft.ifft(sig.sum(-2), dim=-1, norm="ortho")
-        f, p = welch_psd(td.reshape(-1), psd_nfft, n_samp_per_seg)
+        f, p = welch_psd(ofdm.fd_to_td(sig.sum(-2)).reshape(-1), psd_nfft, n_samp_per_seg)
         out.append(p.cpu().numpy())
     return (f.cpu().numpy(), *out)
 

@@ -79,9 +79,9 @@ def ifft_pa_fft(fd_clean: torch.Tensor, pa_model: str, sat_power,
         return fused_chain.fused_ifft_pa_fft_planar(
             fd_clean, pa_model=pa_model, sat=sat_power, cubic_coeff=toi_coeff,
             rapp_p=rapp_p, storage=mxu_storage)
-    td = torch.fft.ifft(fd_clean, dim=-1, norm="ortho")
-    td_dist = pa_transfer(td, pa_model, sat_power, rapp_p, toi_coeff)
-    return torch.fft.fft(td_dist, dim=-1, norm="ortho")
+    td_dist = pa_transfer(ofdm.fd_to_td(fd_clean), pa_model, sat_power, rapp_p,
+                          toi_coeff)
+    return ofdm.td_to_fd(td_dist)
 
 
 def ifft_pa_fft_sc(per_ant_sc: torch.Tensor, n_fft: int, pa_model: str,
@@ -152,7 +152,7 @@ def array_transmit_td(bits: torch.Tensor, *, constel_size: int, n_fft: int,
     ``reference/transceiver.py:123-129,167-174``). The PA runs on the
     time samples, so this path has no FFT after it and no kernel."""
     per_ant_sc = precode_symbols(modulate_users(bits, constel_size), v, sum_users)
-    td = torch.fft.ifft(ofdm.map_subcarriers(per_ant_sc, n_fft), dim=-1, norm="ortho")
+    td = ofdm.fd_to_td(ofdm.map_subcarriers(per_ant_sc, n_fft))
     if not skip_dist:
         td = pa_transfer(td, pa_model, sat_power, rapp_p, toi_coeff)
-    return torch.cat([td[..., td.shape[-1] - cp_len:], td], dim=-1) if cp_len else td
+    return ofdm.add_cyclic_prefix(td, cp_len)

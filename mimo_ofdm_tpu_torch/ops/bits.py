@@ -58,3 +58,9 @@ def count_bit_errors(tx_bits: torch.Tensor, rx_bits: torch.Tensor,
     if axis is None:
         return diff.sum(dtype=torch.int32)
     return diff.sum(axis, dtype=torch.int32)
+
+
+def gray_encode(x: torch.Tensor) -> torch.Tensor:
+    """Binary-reflected Gray code ``x ^ (x >> 1)``
+    (``reference/modulation.py:112``)."""
+    return torch.bitwise_xor(x, x >> 1)

@@ -2,7 +2,8 @@
 
 The noise convention is the reference's ``Awgn.process``
 (``reference/noise.py:45-66``): per-complex-sample noise power
-``avg_sample_pow / 10^(snr_db/10)``. The caller supplies the unit normals,
+``avg_sample_pow / 10^(snr_db/10)``, or a fixed power in dBm
+(:func:`awgn_fixed_power`). The caller supplies the unit normals,
 so tests can hand the port the JAX package's own draws.
 """
 
@@ -22,17 +23,30 @@ def complex_normal(normals: torch.Tensor) -> torch.Tensor:
     return torch.complex(normals[..., 0, :] * s, normals[..., 1, :] * s)
 
 
+def _amplitude(noise_pow):
+    """``sqrt(noise_pow)``, broadcast over the sample axis when it is a
+    ``[...]`` tensor. A Python scalar stays on the host: turning it into a
+    CUDA tensor would sync the stream."""
+    if isinstance(noise_pow, torch.Tensor):
+        amp = torch.sqrt(noise_pow.to(torch.float32))
+        return amp[..., None] if amp.ndim else amp
+    return math.sqrt(noise_pow)
+
+
 def awgn(in_sig: torch.Tensor, snr_db, avg_sample_pow, noise: torch.Tensor
          ) -> torch.Tensor:
     """Add ``noise`` (unit complex normal, :func:`complex_normal`) at the
     given SNR against ``avg_sample_pow``; a ``[...]`` tensor of powers
     broadcasts against the signal's leading dims
-    (``reference/noise.py:45-66``, SNR branch). Python scalars stay on the
-    host: turning them into CUDA tensors would sync the stream."""
+    (``reference/noise.py:45-66``, SNR branch)."""
     noise_pow = avg_sample_pow / (10.0 ** (float(snr_db) / 10.0))
-    if isinstance(noise_pow, torch.Tensor):
-        amp = torch.sqrt(noise_pow.to(torch.float32))
-        amp = amp[..., None] if amp.ndim else amp
-    else:
-        amp = math.sqrt(noise_pow)
-    return in_sig + noise * amp
+    return in_sig + noise * _amplitude(noise_pow)
+
+
+def awgn_fixed_power(in_sig: torch.Tensor, noise_p_dbm, noise: torch.Tensor
+                     ) -> torch.Tensor:
+    """Add ``noise`` (unit complex normal) at a fixed power in dBm,
+    ``0.001 * 10^(dBm/10)`` per complex sample (``reference/noise.py:59-60``).
+    ``noise_p_dbm`` is a Python float or a ``[...]`` tensor that broadcasts
+    against the signal's leading dims."""
+    return in_sig + noise * _amplitude(0.001 * 10.0 ** (noise_p_dbm / 10.0))

@@ -18,7 +18,7 @@ import functools
 import numpy as np
 import torch
 
-from mimo_ofdm_tpu_torch.ops.bits import bits_to_ints, ints_to_bits
+from mimo_ofdm_tpu_torch.ops.bits import bits_to_ints, gray_encode, ints_to_bits
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,8 +86,7 @@ def hard_detect_index(symbols: torch.Tensor, constel_size: int,
     i = _pam_quantize(y.imag, n)
     # column snake: odd real-index columns run the imag index backwards
     c = torch.where(r % 2 == 0, i, n - 1 - i)
-    lin = n * r + c
-    return torch.bitwise_xor(lin, lin >> 1)
+    return gray_encode(n * r + c)
 
 
 def demodulate_bits(symbols: torch.Tensor, constel_size: int,
@@ -98,6 +97,22 @@ def demodulate_bits(symbols: torch.Tensor, constel_size: int,
     return ints_to_bits(idx, bits_per_symbol(constel_size))
 
 
+def _points(idx: torch.Tensor, constel_size: int, alpha, dtype) -> torch.Tensor:
+    """The ``alpha``-scaled constellation points of bit-pattern indices."""
+    sym = qam_constellation(constel_size, idx.device, dtype)[idx.long()]
+    return sym if isinstance(alpha, float) and alpha == 1.0 else sym * alpha
+
+
+def hard_detect_symbols(symbols: torch.Tensor, constel_size: int,
+                        alpha: torch.Tensor | float = 1.0,
+                        dtype=torch.complex64) -> torch.Tensor:
+    """Hard symbol detection returning the ``alpha``-scaled constellation
+    points, as the reference detects against the scaled constellation
+    (``reference/modulation.py:138-146``)."""
+    return _points(hard_detect_index(symbols, constel_size, alpha), constel_size,
+                   alpha, dtype)
+
+
 def detect_symbols_and_bits(symbols: torch.Tensor, constel_size: int,
                             alpha: torch.Tensor | float = 1.0,
                             dtype=torch.complex64
@@ -106,10 +121,18 @@ def detect_symbols_and_bits(symbols: torch.Tensor, constel_size: int,
     points and the bits, from one quantization
     (``reference/corrector.py:78-82``)."""
     idx = hard_detect_index(symbols, constel_size, alpha)
-    sym = qam_constellation(constel_size, symbols.device, dtype)[idx.long()]
-    if not (isinstance(alpha, float) and alpha == 1.0):
-        sym = sym * alpha
-    return sym, ints_to_bits(idx, bits_per_symbol(constel_size))
+    return (_points(idx, constel_size, alpha, dtype),
+            ints_to_bits(idx, bits_per_symbol(constel_size)))
+
+
+def hard_detect_index_argmin(symbols: torch.Tensor,
+                             constellation: torch.Tensor) -> torch.Tensor:
+    """The reference's O(M) minimum-distance detection
+    (``reference/modulation.py:76``) against any constellation ``[M]``,
+    returning int32 indices; it cross-checks :func:`hard_detect_index` and
+    takes non-square constellations. Ties go to the first index."""
+    d2 = (symbols[..., None] - constellation).abs() ** 2
+    return torch.argmin(d2, dim=-1).to(torch.int32)
 
 
 @functools.lru_cache(maxsize=None)

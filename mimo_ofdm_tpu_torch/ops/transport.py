@@ -174,7 +174,7 @@ def make_nr_transport_chain(e_total: int, *, bg: int = 1,
 
     def plan(a):
         b = a + 24
-        kcb = nr_ldpc.KCB[bg]
+        kcb = KCB_NR[bg]
         if b <= kcb:
             c, l_cb = 1, 0
         else:
@@ -308,3 +308,6 @@ def transport_decode(chain: TransportChain, llr: torch.Tensor, n_iters: int = 25
         info = info[..., : chain.k_prime - 24]                  # strip CRC24B
     tb = info.reshape(*lead, -1)                                 # [..., B]
     return tb[..., : chain.a], crc_ok(tb, CRC24A)
+
+
+KCB_NR = nr_ldpc.KCB      # the maximum code-block size of each base graph

@@ -490,3 +490,67 @@ def test_world_size_one_nccl_sharded_rounds(cuda):
         assert torch.equal(got.cpu(), want.cpu())
     finally:
         dist.destroy_process_group()
+
+
+def test_component_receivers_on_the_kernel(cuda):
+    """Phase 15 (b) and (c) of chip_smoke.py at a small width: equalized
+    full-band LOS frames built with the component API go through
+    ``cnc_receive``/``mcnc_receive`` (torch.fft replicas) and through
+    ``cnc_iterate`` with the kernel-backed replicas, 9 launches a receive,
+    at most 1e-4 of the bits differing at any pass; ``fused_ifft_clip_fft``
+    launches the kernel once and agrees with its plain version within
+    1e-5."""
+    from mimo_ofdm_tpu_torch.models import agc, channels, precoding, receivers, transmit
+    from mimo_ofdm_tpu_torch.ops import noise, ofdm
+
+    cfg = config.LinkConfig(
+        modem=config.ModemConfig(n_fft=1024, n_sub_carr=512),
+        array=config.ArrayConfig(n_elements=8),
+        channel=config.ChannelConfig(model="los"), channel_storage="complex64",
+        mxu_fft_storage="float32")
+    m, n_fft, n_sc, n_iters, snr = 64, 1024, 512, 8, 25.0
+    draws = link.FrameDraws.draw(cfg, 16, torch.Generator(device=cuda).manual_seed(15))
+    tx_pos, freqs, rx_base = link.link_static(cfg, cuda)
+    h_fd = link.make_channel_fn(cfg, freqs, rx_base, True)(tx_pos, draws)
+    h_sc = ofdm.extract_subcarriers(h_fd, n_sc)
+    v = precoding.mrt_precoder(h_sc)
+    sat = precoding.pa_sat_power(0.0, cfg.modem.avg_sample_power, v)[:, None]
+    st = agc.compute_agc(h_sc, v, 0.0, 8, n_fft)
+    fd = transmit.array_transmit_fd(draws.bits_d, constel_size=m, n_fft=n_fft, v=v,
+                                    sat_power=sat)
+    rx = noise.awgn(channels.propagate(h_fd, fd), snr,
+                    cfg.modem.avg_symbol_power * st.ak_hk_vk_noise_scaler,
+                    noise.complex_normal(ofdm.map_subcarriers(draws.noise_d, n_fft)))
+    rx = receivers.equalize(rx, st.ak_hk_vk_agc_nfft)
+    agc_sc = ofdm.extract_subcarriers(st.ak_hk_vk_agc_nfft, n_sc)
+    mxu = dict(use_mxu_fft=True, mxu_storage="float32")
+    kw = dict(constel_size=m, n_sc=n_sc)
+    cases = {
+        "cnc": (receivers.cnc_receive(rx, n_iters, ibo_db=0.0, **kw),
+                receivers.make_cnc_replica(m, n_fft, n_sc, 0.0, **mxu)),
+        "mcnc": (receivers.mcnc_receive(rx, n_iters, h_fd, v, st.ak_hk_vk_agc_nfft,
+                                        sat_power=sat, **kw),
+                 receivers.make_mcnc_replica(h_sc, v, agc_sc, constel_size=m, n_fft=n_fft,
+                                             n_sc=n_sc, sat_power=sat, **mxu))}
+    n_bits = draws.bits_d.numel()
+    for alg, (plain_bits, replica) in cases.items():
+        before = KERNEL.launches
+        bits, _ = receivers.cnc_iterate(ofdm.extract_subcarriers(rx, n_sc), n_iters, m,
+                                        replica)
+        assert KERNEL.launches - before == n_iters + 1
+        diff = (bits != plain_bits).flatten(1).sum(-1)
+        assert int(diff.max()) <= 1e-4 * n_bits, (alg, diff.tolist())
+        errs = (bits != draws.bits_d).flatten(1).sum(-1)
+        assert 0 < int(errs[0]) < 0.5 * n_bits
+
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.complex(torch.randn(64, 4096, generator=g, device=cuda),
+                      torch.randn(64, 4096, generator=g, device=cuda))
+    before = KERNEL.launches
+    y = fused_pa.fused_ifft_clip_fft(x, 1.5)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    ones = torch.ones(64, device=cuda)
+    pr, pi = fused_pa.fused_ifft_pa_fft_plain(x.real, x.imag, ones * 1.5, ones * 0.0,
+                                              pa_model="softlim", n_fft=4096, mode="full")
+    assert y.dtype == torch.complex64 and _rel(y, torch.complex(pr, pi)) < 1e-5
