@@ -7,12 +7,18 @@ Phases, each printing one JSON line:
 1. device: the card's name and power limit (nvidia-smi) and torch's view.
 2. build: compile csrc/fused_pa.cu with nvcc and print ptxas's report;
    registers, local memory (spills), shared memory and resident blocks per
-   SM of every instantiation, as the runtime reads them. A 4096-point
-   instantiation with local memory fails the phase.
+   SM of every instantiation (5 sizes x 2 modes x 4 I/O layouts), as the
+   runtime reads them. A 4096-point instantiation with local memory or
+   fewer than 2 resident blocks per SM fails the phase.
 3. kernel: the fused_pa kernel against its plain PyTorch version on the
    card (full/sc modes, f32/bf16 planes, every PA model, every n_fft, a
    ragged last block at every n_fft below 4096, one row and zero rows,
-   n_sc = n_fft/4, and the TX shape in both dtypes).
+   n_sc = n_fft/4, and the TX shape in both dtypes); then its interleaved
+   complex64 layouts (``fused_ifft_pa_fft_complex``) at every n_fft in
+   both modes and storages, every PA model, a ragged last block, one row,
+   a conjugated and a strided view and the main paths' shapes, each the
+   same bits as the plane layout on the same input and within 1e-5 (f32)
+   or 1e-2 (bf16) of the plain version.
 4. main path: bench.py's Rayleigh frame (the canonical config with the
    Rayleigh channel: 64-QAM, n_fft 4096, n_sc 2048, 64-antenna ULA, MRT,
    soft limiter at IBO 0 dB, 8 CNC iterations, bf16 storage) through
@@ -24,17 +30,21 @@ Phases, each printing one JSON line:
    the canonical LOS planes, the complex64 branch, and the TDL and GSCM
    channels; the counters must be equal.
 6. timing: CUDA-event times of the kernel, its plain version and the
-   torch.fft chain at the main path's two shapes (TX launch, CNC replica)
-   in both plane dtypes, beside the kernel's bound and its share of it.
+   torch.fft chain with the clip (and without it) at the main path's two
+   shapes (TX launch, CNC replica) in both plane dtypes, beside the
+   kernel's bound and its share of it; then the interleaved bf16 layout at
+   the TX shape and at an MCNC-MU pass, with the complex-ended chain call
+   as callers see it through the interleaved layout and through planes.
    ``ms`` is the mean over back-to-back calls, host time included, as the
    main path sees it; ``graph_ms`` replays the kernel's calls from a CUDA
    graph, which leaves its device time alone.
 7. canonical_los: the repo's canonical configuration, canonical_miso_cnc()
    unchanged (LOS, RX rerolled per frame), CNC and MCNC rounds at full
    width and Eb/N0 15 dB, with the same checks and frames/s.
-8. two_path / complex64: one full-width round per receiver of the two-path
-   channel on bf16 planes and of the complex64 branch on LOS at f32 chain
-   storage, with the same checks.
+8. two_path / complex64 / f32_planes: one full-width round per receiver of
+   the two-path channel on bf16 planes, of the complex64 branch on LOS at
+   f32 chain storage and of the LOS frame on f32 planes, with the same
+   checks.
 9. sweep: miso_ber_vs_ebn0 at full width through the Monte-Carlo driver,
    two Eb/N0 points of a few rounds each; its CSV (in a temporary
    directory) must have the expected name and layout.
@@ -80,7 +90,8 @@ Phases, each printing one JSON line:
    (e) every other new experiment once at cut depth, each with a physics
    check; (f) an f32 radiation pattern and a SISO frame through the
    kernel and the plain version; (g) each path's launches against the
-   code's prediction; and the kernel's time at the analysis shapes.
+   code's prediction; and the kernel's time at the analysis shapes, on
+   f32 planes and in the interleaved f32 layout the scans launch.
 14. scale_out: (a) a world-size-1 NCCL job (``parallel.multihost``): the
    sharded rounds on its (1, 1) mesh (``parallel.sharded``) against the
    unsharded ones for the same keys, counters equal and 10 launches a
@@ -103,11 +114,13 @@ Phases, each printing one JSON line:
    (b) the same frames through ``cnc_iterate`` with the kernel-backed
    replicas, 9 launches a receive and at most 1e-4 of the bits differing
    at any pass; (c) ``fused_ifft_clip_fft`` at ``[6400, 4096]`` against
-   its plain version, one launch, 1e-5; (d) the CP modem's round trip at
-   ``[128, 64, 2048]``, ``cp_len`` 128, 1e-6.
+   its plain version, one launch in the interleaved f32 layout, the same
+   bits as the plane route it took before, 1e-5; (d) the CP modem's round
+   trip at ``[128, 64, 2048]``, ``cp_len`` 128, 1e-6.
 
-Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
-line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
+Then the ``{"kernels": [...]}`` line, one row per I/O layout with the
+paths' launches in it, the nvidia-smi line, and as the last line
+``{"ok": true, "device": {...}}``. Any failed check raises, so the
 script exits non-zero without the last line; so does a machine with no
 CUDA device, or a directory without the package.
 """
@@ -134,6 +147,26 @@ H100_F32_FLOPS = 67e12          # f32 outside the tensor cores, H100 SXM data sh
 COMMITTED_CSV_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "figs",
                                  "csv_results")
 RESULTS: dict = {}
+LAYOUT_LAUNCHES: dict = {}      # the paths' kernel launches by I/O layout, summed
+
+
+def zero_launches(kern) -> None:
+    """Set the kernel's launch counts, in all and by I/O layout, to 0."""
+    kern.launches = 0
+    for layout in kern.launches_by_layout:
+        kern.launches_by_layout[layout] = 0
+
+
+def add_layout_launches(counts: dict) -> None:
+    for layout, n in counts.items():
+        LAYOUT_LAUNCHES[layout] = LAYOUT_LAUNCHES.get(layout, 0) + n
+
+
+def read_launches(kern) -> int:
+    """The kernel's launches since :func:`zero_launches`, all made by a path
+    of the run: their split by layout goes into ``LAYOUT_LAUNCHES``."""
+    add_layout_launches(kern.launches_by_layout)
+    return kern.launches
 
 
 def emit(phase: str, **fields) -> None:
@@ -280,15 +313,127 @@ def kernel_checks(fp, dev) -> dict:
                        tol=1e-2, pa_model="softlim", n_fft=4096, mode="sc"))
     before = kern.launches
     zr, _ = kern(ar[:0], ai[:0], 1.0, pa_model="softlim", n_fft=4096, mode="sc")
-    zero_ok = tuple(zr.shape) == (0, 2048) and kern.launches == before
+    zc = fp.fused_ifft_pa_fft_complex(torch.complex(ar[:0], ai[:0]), 1.0, pa_model="softlim",
+                                      n_fft=4096, mode="sc", storage="bfloat16")
+    zero_ok = (tuple(zr.shape) == tuple(zc.shape) == (0, 2048) and zc.is_cuda
+               and kern.launches == before)
     print(json.dumps({"phase": "kernel", "case": "zero_rows", "shape": [0, 2048],
                       "launched": kern.launches - before, "ok": zero_ok}), flush=True)
     if not zero_ok:
         raise AssertionError("zero rows: expected an empty result and no launch")
+    inter = interleaved_checks(fp, dev, g)
     return {"cases": len(cases), "worst_rel_err": max(c["rel_err"] for c in cases
-                                                      if c["tol"] <= 1e-5)}
+                                                      if c["tol"] <= 1e-5),
+            "interleaved_cases": len(inter),
+            "interleaved_worst_rel_err": max(c["rel_err"] for c in inter if c["tol"] <= 1e-5),
+            "interleaved_bitwise_equal_planes": all(c["bitwise_equal_planes"] for c in inter)}
 
 
+def layout_name(storage: str) -> str:
+    """The interleaved layout of a chain storage, as ``LAYOUTS`` names it."""
+    return "interleaved_" + ("bf16" if storage == "bfloat16" else "f32")
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """complex64 tensors equal in every bit (their halves as int32)."""
+    def ints(z):
+        return torch.view_as_real(z.resolve_conj().contiguous()).view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(ints(a), ints(b)))
+
+
+def planes_route(fp, x, sat, coeff=0.0, storage="float32", **kw):
+    """The plane layout on complex64, as the complex-ended chain calls ran
+    it before they had the interleaved layout: the halves cast to planes
+    of the storage dtype, the plane launch, the result cast back."""
+    st = fp.STORAGE_DTYPES[storage]
+    kr, ki = fp.fused_ifft_pa_fft(x.real.to(st).contiguous(), x.imag.to(st).contiguous(), sat,
+                                  coeff, **kw)
+    return torch.complex(kr.to(torch.float32), ki.to(torch.float32))
+
+
+def interleaved_checks(fp, dev, g) -> list[dict]:
+    """Phase 3 (b): the kernel's interleaved complex64 layouts
+    (``fused_ifft_pa_fft_complex``), each case one launch, the same bits
+    as the plane layout on the same input (:func:`planes_route`) and
+    within 1e-5 (f32) or 1e-2 (bf16) relative L2 of the plain version:
+    every n_fft in both modes at both storages, every PA model, a ragged
+    last block, one row, a conjugated and a strided view, and the main
+    path's shapes."""
+    kern = fp.fused_ifft_pa_fft
+    tols = {"float32": 1e-5, "bfloat16": 1e-2}
+    cases = []
+
+    def cplx(rows, n):
+        return torch.complex(torch.randn(rows, n, generator=g, device=dev),
+                             torch.randn(rows, n, generator=g, device=dev))
+
+    def check(name, x, sat, coeff=0.0, storage="float32", **kw):
+        layout = layout_name(storage)
+        before, by_layout = kern.launches, kern.launches_by_layout[layout]
+        got = fp.fused_ifft_pa_fft_complex(x, sat, coeff, storage=storage, **kw)
+        torch.cuda.synchronize()
+        launched = (kern.launches - before, kern.launches_by_layout[layout] - by_layout)
+        planes = planes_route(fp, x, sat, coeff, storage, **kw)
+        st = fp.STORAGE_DTYPES[storage]
+        lead = x.shape[:-1]
+        s = torch.broadcast_to(torch.as_tensor(sat, dtype=torch.float32, device=dev), lead)
+        c = torch.broadcast_to(torch.as_tensor(coeff, dtype=torch.float32, device=dev), lead)
+        pr, pi = fp.fused_ifft_pa_fft_plain(x.real.to(st), x.imag.to(st), s, c, **kw)
+        torch.cuda.synchronize()
+        ref = torch.complex(pr.float(), pi.float())
+        err = rel_err(got, ref)
+        line = {"case": name, "layout": layout, "shape": list(x.shape),
+                "mode": kw["mode"], "n_fft": kw["n_fft"], "pa_model": kw["pa_model"],
+                "bitwise_equal_planes": bits_equal(got, planes), "rel_err": err,
+                "max_abs_err": float((got - ref).abs().max()), "tol": tols[storage],
+                "launched": list(launched)}
+        line["ok"] = (line["bitwise_equal_planes"] and err < tols[storage]
+                      and launched == (1, 1) and bool(torch.isfinite(got).all()))
+        print(json.dumps({"phase": "kernel", **line}), flush=True)
+        if not line["ok"]:
+            raise AssertionError(f"interleaved check {name} failed: {line}")
+        cases.append(line)
+
+    for n_fft in (256, 512, 1024, 2048, 4096):
+        for mode in ("sc", "full"):
+            n_io = n_fft // 2 if mode == "sc" else n_fft
+            for storage in ("float32", "bfloat16"):
+                rows = 64 if n_fft == 4096 else 96
+                sat = torch.rand(rows, generator=g, device=dev) * 2 + 0.2
+                check(f"{mode}_softlim_{storage}_nfft{n_fft}", cplx(rows, n_io), sat,
+                      storage=storage, pa_model="softlim", n_fft=n_fft, mode=mode)
+                if n_fft < 4096:     # 37 rows: the last block is ragged
+                    check(f"{mode}_softlim_{storage}_nfft{n_fft}_ragged37", cplx(37, n_io),
+                          sat[:37], storage=storage, pa_model="softlim", n_fft=n_fft,
+                          mode=mode)
+                else:
+                    check(f"{mode}_softlim_{storage}_one_row", cplx(1, n_io), 0.4,
+                          storage=storage, pa_model="softlim", n_fft=n_fft, mode=mode)
+    sat = torch.rand(512, generator=g, device=dev) * 2 + 0.2
+    coeff = torch.rand(512, generator=g, device=dev) * 0.05
+    for model in ("none", "rapp", "toi"):
+        for storage in ("float32", "bfloat16"):
+            check(f"sc_{model}_{storage}", cplx(512, 2048), sat, coeff, storage=storage,
+                  pa_model=model, n_fft=4096, mode="sc")
+    x = cplx(256, 2048)
+    check("sc_softlim_bfloat16_conjugated_view", x.conj(), 0.6, storage="bfloat16",
+          pa_model="softlim", n_fft=4096, mode="sc")
+    check("sc_softlim_float32_strided_view", cplx(2048, 512).T[::2], 0.6,
+          pa_model="softlim", n_fft=4096, mode="sc")
+    for name, rows, n_fft, mode, storage in MAIN_SHAPES:
+        n_io = n_fft // 2 if mode == "sc" else n_fft
+        sat = torch.rand(rows, generator=g, device=dev) + 0.2
+        check(f"{name}_shape", cplx(rows, n_io), sat, storage=storage, pa_model="softlim",
+              n_fft=n_fft, mode=mode)
+    return cases
+
+
+# the interleaved layout's shapes on the main paths: (name, rows, n_fft,
+# mode, storage); each is timed in phase 6 or beside the analysis timing
+MAIN_SHAPES = (("tx_interleaved_bf16", 8192, 4096, "sc", "bfloat16"),
+               ("mcnc_mu_interleaved_bf16", 16384, 4096, "sc", "bfloat16"),
+               ("scan_sc_interleaved_f32", 2560, 4096, "sc", "float32"),
+               ("psd_full_interleaved_f32", 6400, 4096, "full", "float32"))
 N_ITERS = 8
 CANONICAL_EBN0_DB = 15.0       # the LOS phases' operating point (SNR 22.78 dB)
 
@@ -324,14 +469,14 @@ def drive_path(fp, link, phase: str, cfg, dev, batch: int, rounds: int, snr: flo
     for i in range(warmup):                 # allocator, kernel build
         round_fn(0, 10_000 + i, snr)
     torch.cuda.synchronize()
-    kern.launches = 0
+    zero_launches(kern)
     t0 = time.perf_counter()
     total = torch.zeros(N_ITERS + 2, dtype=torch.int64, device=dev)
     for i in range(rounds):
         total += round_fn(0, i, snr)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = kern.launches
+    launches = read_launches(kern)
     counts = total.cpu().tolist()
     expected = rounds * (1 + N_ITERS + 1)
     n_bits = rounds * batch * cfg.modem.n_bits_per_ofdm_sym
@@ -340,6 +485,7 @@ def drive_path(fp, link, phase: str, cfg, dev, batch: int, rounds: int, snr: flo
             "mxu_storage": cfg.mxu_fft_storage, "batch": batch, "rounds": rounds,
             "snr_db": snr, "counters": counts, "ber": ber, "launches": launches,
             "expected_launches": expected, "launches_per_round": launches / rounds,
+            "launches_by_layout": dict(kern.launches_by_layout),
             "seconds": dt, "frames_per_s": rounds * batch / dt,
             "kernel_rows_per_frame": cfg.array.n_elements + (N_ITERS + 1) * (
                 cfg.array.n_elements if alg == "mcnc" else 1), "card": card}
@@ -367,7 +513,8 @@ def los_paths(fp, config, link, dev, batch: int, rounds: int, snr: float,
               card: str = "") -> dict:
     """Phases 7 and 8: the canonical LOS configuration in CNC and MCNC
     (``rounds`` timed rounds), then one round per receiver of the two-path
-    channel on bf16 planes and of the complex64 branch on LOS."""
+    channel on bf16 planes, of the complex64 branch on LOS and of the LOS
+    frame on f32 planes (its TX the kernel's one f32-plane launch)."""
     out = {}
     for alg in ("cnc", "mcnc"):
         out[f"los_{alg}"] = drive_path(fp, link, "canonical_los", canonical_cfg(config, alg),
@@ -380,6 +527,10 @@ def los_paths(fp, config, link, dev, batch: int, rounds: int, snr: float,
                                     mxu_fft_storage="float32")
         out[f"complex_los_{alg}"] = drive_path(fp, link, "complex64", complex_los, dev,
                                                batch, 1, snr, warmup=1, card=card)
+        f32_planes = canonical_cfg(config, alg, channel_storage="float32",
+                                   mxu_fft_storage="float32")
+        out[f"f32_planes_los_{alg}"] = drive_path(fp, link, "f32_planes", f32_planes, dev,
+                                                  batch, 1, snr, warmup=1, card=card)
     return out
 
 
@@ -434,7 +585,7 @@ def sweep(fp, config, results, ber_sweeps, dev, batch: int, card: str = "") -> d
     ebn0 = (10.0, 15.0)
     with results_dir() as tmp:
         torch.cuda.synchronize()
-        kern.launches = 0
+        zero_launches(kern)
         t0 = time.perf_counter()
         res = ber_sweeps.miso_ber_vs_ebn0(
             channels=("los",), n_ant=n_ant, n_iters=N_ITERS, ebn0_min=ebn0[0],
@@ -444,7 +595,7 @@ def sweep(fp, config, results, ber_sweeps, dev, batch: int, card: str = "") -> d
             device=dev)["los"]
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = kern.launches
+        launches = read_launches(kern)
         name = results.ber_sweep_filename("ber_vs_ebn0", "cnc", "los", n_ant, 0.0,
                                           res.param_values, list(range(1, N_ITERS + 1)))
         files = sorted(os.listdir(tmp))
@@ -520,7 +671,7 @@ def drive_mu_path(fp, link_mu, name: str, cfg, sep: bool, dev, batch: int, round
     round_fn = link_mu.make_mu_round_fn(cfg, N_ITERS, batch, sep_carriers=sep, device=dev)
     round_fn(0, 10_000, snr)
     torch.cuda.synchronize()
-    kern.launches = 0
+    zero_launches(kern)
     t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -538,7 +689,7 @@ def drive_mu_path(fp, link_mu, name: str, cfg, sep: bool, dev, batch: int, round
     syncs = [str(w.message).splitlines()[0] for w in caught
              if "synchroniz" in str(w.message).lower()
              and "prototype feature" not in str(w.message)]
-    launches = kern.launches
+    launches = read_launches(kern)
     counts = total.cpu().tolist()
     n_usr = len(counts)
     n_bits = rounds * batch * cfg.modem.n_bits_per_ofdm_sym // (n_usr if sep else 1)
@@ -609,7 +760,7 @@ def mu_sweep(fp, results, ber_sweeps, dev, batch: int, card: str = "", n_ant: in
     ebn0 = (10.0, 15.0)
     with results_dir() as tmp:
         torch.cuda.synchronize()
-        kern.launches = 0
+        zero_launches(kern)
         t0 = time.perf_counter()
         x, ber = ber_sweeps.multiuser_ber(
             ebn0_min=ebn0[0], ebn0_max=ebn0[1], ebn0_step=ebn0[1] - ebn0[0],
@@ -617,7 +768,7 @@ def mu_sweep(fp, results, ber_sweeps, dev, batch: int, card: str = "", n_ant: in
             small=small, verbose=False, device=dev)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = kern.launches
+        launches = read_launches(kern)
         name = results.mu_ber_filename("mr", "los", n_ant, 0.0, x, list(range(1, N_ITERS + 1)),
                                        (-30.0, 30.0), (100.0, 316.3))
         files = sorted(os.listdir(tmp))
@@ -672,14 +823,14 @@ def drive_coded(fp, profiling, name: str, round_fn, n_iters: int, payload_bits: 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    kern.launches = 0
+    zero_launches(kern)
     t0 = time.perf_counter()
     start.record()
     total = round_fn(0, 0, snr)
     end.record()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = kern.launches
+    launches = read_launches(kern)
     peak = torch.cuda.max_memory_allocated()
     counts = total.cpu().tolist()
     n = n_iters + 2
@@ -745,7 +896,7 @@ def coded_sweep(fp, results, ber_sweeps, dev, batch: int, card: str = "", n_ant:
     ebn0 = CODED_EBN0_DB
     with results_dir() as tmp:
         torch.cuda.synchronize()
-        kern.launches = 0
+        zero_launches(kern)
         t0 = time.perf_counter()
         x, ber = ber_sweeps.ldpc_ref_ber(
             n_ant=n_ant, n_iters=N_ITERS, ebn0_min=ebn0[0], ebn0_max=ebn0[1],
@@ -754,7 +905,7 @@ def coded_sweep(fp, results, ber_sweeps, dev, batch: int, card: str = "", n_ant:
             device=dev)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = kern.launches
+        launches = read_launches(kern)
         name = results.ber_sweep_filename("ldpc_1_2_ber_vs_ebn0", "cnc", "los", n_ant, 0.0,
                                           x, list(range(1, N_ITERS + 1)))
         bler_name = results.ber_sweep_filename("ldpc_1_2_ber_vs_ebn0_bler", "cnc", "los",
@@ -826,11 +977,11 @@ def counted(fp, fn):
     before ``fn`` and read just after, the device drained on both sides."""
     kern = fp.fused_ifft_pa_fft
     torch.cuda.synchronize()
-    kern.launches = 0
+    zero_launches(kern)
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, kern.launches, time.perf_counter() - t0
+    return out, read_launches(kern), time.perf_counter() - t0
 
 
 def check(ok: bool, what: str, line: dict, phase: str = "analysis") -> None:
@@ -1145,9 +1296,12 @@ def analysis_timing(fp, ofdm, dev, card: str = "", n_fft: int = 4096) -> dict:
     """The kernel at the analysis shapes, f32 planes: ``full`` mode at the
     PSD transmit ``[6400, 4096]`` (100 snapshots x 64 antennas) and ``sc``
     mode at the radiation scan's chunk ``[2560, 2048]`` (4 points x 10
-    snapshots x 64 antennas), beside the bound and the torch.fft chain. At
-    each shape the kernel must agree with its plain version on the same
-    inputs within 1e-5 relative L2, as in phase 3."""
+    snapshots x 64 antennas), beside the bound and the torch.fft chain with
+    the clip (:func:`clip_chain`) and without it; then the interleaved f32
+    layout, which the analysis paths launch, at the same shapes
+    (:func:`layout_timing`). At each shape the kernel must agree with its
+    plain version on the same inputs within 1e-5 relative L2, as in phase
+    3."""
     kern = fp.fused_ifft_pa_fft
     g = torch.Generator(device=dev).manual_seed(2)
     out = {}
@@ -1163,7 +1317,9 @@ def analysis_timing(fp, ofdm, dev, card: str = "", n_fft: int = 4096) -> dict:
         plain_ms = time_ms(lambda: fp.fused_ifft_pa_fft_plain(xr, xi, sat, coeff, **kw))
         x = torch.complex(xr, xi)
         full = x if mode == "full" else ofdm.map_subcarriers(x, n_fft)
-        lib_ms = time_ms(lambda: torch.fft.fft(torch.fft.ifft(full, norm="ortho"), norm="ortho"))
+        lib_ms = time_ms(lambda: clip_chain(full, sat))
+        noclip_ms = time_ms(lambda: torch.fft.fft(torch.fft.ifft(full, norm="ortho"),
+                                                  norm="ortho"))
         kr, ki = kern(xr, xi, sat, coeff, **kw)
         pr, pi = fp.fused_ifft_pa_fft_plain(xr, xi, sat, coeff, **kw)
         torch.cuda.synchronize()
@@ -1172,16 +1328,94 @@ def analysis_timing(fp, ofdm, dev, card: str = "", n_fft: int = 4096) -> dict:
         n_bytes = rows * n_io * 2 * 4 * 2 + rows * 8
         n_ops = rows * fp.flops_per_row(n_fft, mode)
         bytes_ms, ops_ms = n_bytes / H100_BYTES_PER_S * 1e3, n_ops / H100_F32_FLOPS * 1e3
-        out[name] = {"rows": rows, "mode": mode, "dtype": "torch.float32", "ms": ms,
+        out[name] = {"rows": rows, "mode": mode, "layout": "planes_f32", "ms": ms,
                      "graph_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": max(bytes_ms, ops_ms), "bound_share": max(bytes_ms, ops_ms) / ms,
+                     "library_noclip_ms": noclip_ms, "bound_ms": max(bytes_ms, ops_ms), "bound_share": max(bytes_ms, ops_ms) / ms,
                      "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
                      "bytes": n_bytes, "flops": n_ops, "rel_err": err, "max_abs_err": max_abs,
                      "card": card}
         print(json.dumps({"phase": "timing", "shape": name, **out[name]}), flush=True)
         if not (err <= 1e-5 and bool(torch.isfinite(got).all())):
             raise AssertionError(f"kernel vs plain at the {name} shape: {out[name]}")
+    for shape in MAIN_SHAPES[2:]:
+        out[shape[0]] = layout_timing(fp, ofdm, dev, g, *shape, card=card)
     return out
+
+
+def clip_chain(full: torch.Tensor, sat: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in torch ops over the full band of ``full``:
+    torch.fft's IFFT, the soft limiter (a sample of power above the row's
+    ``sat`` scaled down to it), torch.fft's FFT; the library yardstick."""
+    td = torch.fft.ifft(full, norm="ortho")
+    pwr = td.real.square() + td.imag.square()
+    s = sat[..., None]
+    return torch.fft.fft(td * torch.where(pwr <= s, 1.0, torch.sqrt(s / pwr)), norm="ortho")
+
+
+def layout_timing(fp, ofdm, dev, g, name: str, rows: int, n_fft: int, mode: str,
+                  storage: str, card: str = "") -> dict:
+    """The interleaved layout at one of ``MAIN_SHAPES``, softlim at sat
+    0.5: ``fused_ifft_pa_fft_complex`` (CUDA events and graph replay), its
+    plain version, :func:`clip_chain` and the clip-free torch.fft chain,
+    the bound, and the complex-ended chain call as callers see it, after
+    (``ops.fused_chain``, the interleaved layout) and before
+    (:func:`planes_route`), each by events and by graph replay. Fails
+    unless the layout agrees with the plain version within 1e-5 (f32) or
+    1e-2 (bf16) relative L2 and with the plane route bit for bit."""
+    from mimo_ofdm_tpu_torch.ops import fused_chain
+    n_io = n_fft // 2 if mode == "sc" else n_fft
+    x = torch.complex(torch.randn(rows, n_io, generator=g, device=dev),
+                      torch.randn(rows, n_io, generator=g, device=dev))
+    sat = torch.full((rows,), 0.5, device=dev)
+    coeff = torch.zeros(rows, device=dev)
+    kw = dict(pa_model="softlim", n_fft=n_fft, mode=mode)
+    st = fp.STORAGE_DTYPES[storage]
+
+    def entry():
+        return fp.fused_ifft_pa_fft_complex(x, sat, coeff, storage=storage, **kw)
+
+    def caller():
+        if mode == "sc":
+            return fused_chain.fused_sc_ifft_pa_fft_planar(
+                x, n_fft, pa_model="softlim", sat=sat, cubic_coeff=coeff, storage=storage)
+        return fused_chain.fused_ifft_pa_fft_planar(x, pa_model="softlim", sat=sat,
+                                                    cubic_coeff=coeff, storage=storage)
+
+    def planes():
+        return planes_route(fp, x, sat, coeff, storage, **kw)
+
+    def plain():
+        pr, pi = fp.fused_ifft_pa_fft_plain(x.real.to(st), x.imag.to(st), sat, coeff, **kw)
+        return torch.complex(pr.float(), pi.float())
+
+    full = x if mode == "full" else ofdm.map_subcarriers(x, n_fft)
+    line = {"rows": rows, "n_io": n_io, "mode": mode, "layout": layout_name(storage),
+            "ms": time_ms(entry), "graph_ms": graph_ms(entry), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(lambda: clip_chain(full, sat)),
+            "library_noclip_ms": time_ms(lambda: torch.fft.fft(
+                torch.fft.ifft(full, norm="ortho"), norm="ortho")),
+            "caller_ms": time_ms(caller), "caller_graph_ms": graph_ms(caller),
+            "caller_planes_ms": time_ms(planes), "caller_planes_graph_ms": graph_ms(planes)}
+    got, ref, before = entry(), plain(), planes()
+    torch.cuda.synchronize()
+    # 8 bytes a point each way, and sat and the cubic coefficient a row
+    n_bytes = rows * 2 * n_io * 8 + rows * 8
+    planes_bytes = rows * 2 * n_io * 2 * st.itemsize + rows * 8
+    n_ops = rows * fp.flops_per_row(n_fft, mode)
+    bytes_ms, ops_ms = n_bytes / H100_BYTES_PER_S * 1e3, n_ops / H100_F32_FLOPS * 1e3
+    bound = max(bytes_ms, ops_ms)
+    line.update(bound_ms=bound, bound_share=bound / line["ms"],
+                graph_bound_share=bound / line["graph_ms"],
+                bound_by="bytes" if bytes_ms > ops_ms else "operations", bytes=n_bytes,
+                flops=n_ops, planes_bound_ms=max(planes_bytes / H100_BYTES_PER_S * 1e3, ops_ms),
+                rel_err=rel_err(got, ref), max_abs_err=float((got - ref).abs().max()),
+                bitwise_equal_planes=bits_equal(got, before), card=card)
+    print(json.dumps({"phase": "timing", "shape": name, **line}), flush=True)
+    tol = 1e-5 if storage == "float32" else 1e-2
+    if not (line["rel_err"] <= tol and line["bitwise_equal_planes"]
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"interleaved layout at the {name} shape: {line}")
+    return line
 
 
 def analysis(fp, config, results, dev, card: str = "", n_ant: int = 64,
@@ -1244,12 +1478,12 @@ def sharded_vs_unsharded(fp, name: str, sharded_fn, plain_fn, rounds: int, batch
     sharded_fn(SCALE_KEY, 10_000, snr)
     plain_fn(SCALE_KEY, 10_000, snr)
     torch.cuda.synchronize()
-    kern.launches = 0
+    zero_launches(kern)
     t0 = time.perf_counter()
     got = [sharded_fn(SCALE_KEY, i, snr) for i in range(rounds)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = kern.launches
+    launches = read_launches(kern)
     t0 = time.perf_counter()
     want = [plain_fn(SCALE_KEY, i, snr) for i in range(rounds)]
     torch.cuda.synchronize()
@@ -1324,10 +1558,11 @@ def scale_out_rank(rank: int, world: int, port: int, outdir: str, dev_type: str,
                                                    device=dev)
                 rf(SCALE_KEY, 10_000, snr)
                 torch.cuda.synchronize()
-                kern.launches = 0
+                zero_launches(kern)
                 t0 = time.perf_counter()
                 c = rf(SCALE_KEY, 0, snr).cpu().tolist()
                 out[f"{axis}_{alg}"] = {"counters": c, "launches": kern.launches,
+                                        "launches_by_layout": dict(kern.launches_by_layout),
                                         "seconds": time.perf_counter() - t0}
         with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
@@ -1386,6 +1621,9 @@ def two_ranks(fp, config, link, dev, batch: int, snr_ray: float, snr_los: float,
     shutil.rmtree(outdir, ignore_errors=True)
     line = {"path": "two_ranks_gloo", "batch": batch, "seconds": seconds, "card": card,
             "launches": sum(r[k]["launches"] for r in ranks for k in want)}
+    for r in ranks:
+        for k in want:
+            add_layout_launches(r[k]["launches_by_layout"])
     for k, w in want.items():
         got = [r[k]["counters"] for r in ranks]
         diff = [abs(a - b) for a, b in zip(got[0], w)]
@@ -1470,12 +1708,12 @@ def scale_out(fp, config, link, link_mu, link_ldpc, ber_sweeps, dev, batch: int,
             link_ldpc.make_transport_round_fn(cfg, N_ITERS, CODED_BATCH, chain, **coded_kw),
             1, CODED_BATCH, snr_coded, dev, card)
 
-        kern.launches = 0
+        zero_launches(kern)
         t0 = time.perf_counter()
         payload = EXPERIMENTS["weak_scaling"](
             n_ant=n_ant, n_iters=N_ITERS, batch_per_device=batch, device_counts=[1],
             small=small, save_json=False, verbose=False, min_seconds=2.0, device=dev)
-        launches = kern.launches
+        launches = read_launches(kern)
         res = payload["results"]["1"]
         line = {"path": "weak_scaling", "platform": payload["platform"],
                 "device_name": payload["device_name"], **res, "launches": launches,
@@ -1654,29 +1892,38 @@ def components(fp, config, link, dev, snr: float, card: str = "", batch: int = 1
                       torch.randn(rows, fp.N, generator=g, device=dev))
     sat_c = 1.5
     y, launches, _ = counted(fp, lambda: fp.fused_ifft_clip_fft(x, sat_c))
+    interleaved = kern.launches_by_layout["interleaved_f32"]
     ones = torch.ones(rows, device=dev)
-    pr, pi = fp.fused_ifft_pa_fft_plain(x.real, x.imag, ones * sat_c, ones * 0.0,
-                                        pa_model="softlim", n_fft=fp.N, mode="full")
+    full = dict(pa_model="softlim", n_fft=fp.N, mode="full")
+    pr, pi = fp.fused_ifft_pa_fft_plain(x.real, x.imag, ones * sat_c, ones * 0.0, **full)
     ref = torch.complex(pr, pi)
     err = rel_err(y, ref)
+    # the route it took before it had the interleaved layout
+    before = planes_route(fp, x, sat_c, **full)
     line = {"path": "fused_ifft_clip_fft", "shape": [rows, fp.N], "rel_err": err,
             "max_abs_err": float((y - ref).abs().max()), "tol": CLIP_TOL,
-            "launches": launches, "expected_launches": 1, "card": card}
+            "bitwise_equal_planes": bits_equal(y, before), "launches": launches,
+            "interleaved_f32_launches": interleaved, "expected_launches": 1, "card": card}
     if dev.type == "cuda":
         # complex64 in and out: each input byte read once, each output byte
         # written once; the split-radix operations of two transforms a row
         bytes_ms = 2 * x.numel() * x.element_size() / H100_BYTES_PER_S * 1e3
         ops_ms = rows * fp.flops_per_row(fp.N, "full") / H100_F32_FLOPS * 1e3
         line.update(ms=time_ms(lambda: fp.fused_ifft_clip_fft(x, sat_c)),
+                    graph_ms=graph_ms(lambda: fp.fused_ifft_clip_fft(x, sat_c)),
                     plain_ms=time_ms(lambda: fp.fused_ifft_pa_fft_plain(
-                        x.real, x.imag, ones * sat_c, ones * 0.0, pa_model="softlim",
-                        n_fft=fp.N, mode="full")),
-                    library_ms=time_ms(lambda: ofdm.td_to_fd(ofdm.fd_to_td(x))),
+                        x.real, x.imag, ones * sat_c, ones * 0.0, **full)),
+                    library_ms=time_ms(lambda: clip_chain(x, ones * sat_c)),
+                    library_noclip_ms=time_ms(lambda: ofdm.td_to_fd(ofdm.fd_to_td(x))),
+                    planes_ms=time_ms(lambda: planes_route(fp, x, sat_c, **full)),
+                    planes_graph_ms=graph_ms(lambda: planes_route(fp, x, sat_c, **full)),
                     bound_ms=max(bytes_ms, ops_ms),
                     bound_by="bytes" if bytes_ms > ops_ms else "operations")
+        line["bound_share"] = line["bound_ms"] / line["ms"]
     print(json.dumps({"phase": "components", **line}), flush=True)
-    expect(launches == 1 and err <= CLIP_TOL and bool(torch.isfinite(y).all()),
-           "fused_ifft_clip_fft", line)
+    expect(launches == 1 and (interleaved == 1 or dev.type != "cuda")
+           and line["bitwise_equal_planes"]
+           and err <= CLIP_TOL and bool(torch.isfinite(y).all()), "fused_ifft_clip_fft", line)
     out["components_fused_ifft_clip_fft"] = line
 
     # (d) the CP modem's round trip
@@ -1700,7 +1947,10 @@ def components(fp, config, link, dev, snr: float, card: str = "", batch: int = 1
 
 def timing(fp, ofdm, dev, batch: int, card: str = "", n_fft: int = 4096,
            n_sc: int = 2048) -> dict:
-    """Phase 6: kernel, plain and torch.fft chain at the main path's shapes."""
+    """Phase 6: kernel, plain and torch.fft chain (with and without the
+    clip) at the main path's shapes on planes; then the interleaved bf16
+    layout at the TX shape (the MU link's TX) and at an MCNC-MU replica
+    pass (:func:`layout_timing`)."""
     kern = fp.fused_ifft_pa_fft
     g = torch.Generator(device=dev).manual_seed(1)
     out = {}
@@ -1719,8 +1969,9 @@ def timing(fp, ofdm, dev, batch: int, card: str = "", n_fft: int = 4096,
         no_pa_ms = time_ms(lambda: kern(xr, xi, sat, coeff, **{**kw, "pa_model": "none"}))
         plain_ms = time_ms(lambda: fp.fused_ifft_pa_fft_plain(xr, xi, sat, coeff, **kw))
         full = ofdm.map_subcarriers(torch.complex(xr.float(), xi.float()), n_fft)
-        lib_ms = time_ms(lambda: torch.fft.fft(torch.fft.ifft(full, norm="ortho"),
-                                               norm="ortho"))
+        lib_ms = time_ms(lambda: clip_chain(full, sat))
+        noclip_ms = time_ms(lambda: torch.fft.fft(torch.fft.ifft(full, norm="ortho"),
+                                                  norm="ortho"))
         kr, ki = kern(xr, xi, sat, coeff, **kw)
         pr, pi = fp.fused_ifft_pa_fft_plain(xr, xi, sat, coeff, **kw)
         torch.cuda.synchronize()
@@ -1728,15 +1979,69 @@ def timing(fp, ofdm, dev, batch: int, card: str = "", n_fft: int = 4096,
         n_bytes = rows * n_sc * 2 * xr.element_size() * 2 + rows * 8
         n_ops = rows * fp.flops_per_row(n_fft, "sc")
         bytes_ms, ops_ms = n_bytes / H100_BYTES_PER_S * 1e3, n_ops / H100_F32_FLOPS * 1e3
-        out[name] = {"rows": rows, "dtype": str(dtype), "ms": ms, "graph_ms": dev_ms,
+        out[name] = {"rows": rows, "mode": "sc", "ms": ms, "graph_ms": dev_ms,
+                     "layout": "planes_bf16" if dtype == torch.bfloat16 else "planes_f32",
                      "ms_without_pa": no_pa_ms, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "bound_ms": max(bytes_ms, ops_ms),
+                     "library_ms": lib_ms, "library_noclip_ms": noclip_ms,
+                     "bound_ms": max(bytes_ms, ops_ms),
                      "bound_share": max(bytes_ms, ops_ms) / ms,
                      "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
                      "bytes": n_bytes, "flops": n_ops, "ns_per_row": ms * 1e6 / rows,
                      "max_abs_err": float(diff.abs().max()), "card": card}
         print(json.dumps({"phase": "timing", "shape": name, **out[name]}), flush=True)
+    for shape in MAIN_SHAPES[:2]:
+        out[shape[0]] = layout_timing(fp, ofdm, dev, g, *shape, card=card)
     return out
+
+
+def kernels_line(paths: dict, times: dict, analysis_times: dict, smi: str) -> dict:
+    """The ``{"kernels": [...]}`` line: one row per I/O layout of the
+    kernel, with the launches the paths made in it (``LAYOUT_LAUNCHES``)
+    and its times at the shape where the paths launch it most; the first
+    row also carries the launches in all, by path, and the
+    ``fused_ifft_clip_fft`` entry point's numbers. Fails if the layouts'
+    launches do not add up to the paths' or a layout was never launched."""
+    clip = paths["components_fused_ifft_clip_fft"]
+    launches = sum(p["launches"] for p in paths.values())
+    if sum(LAYOUT_LAUNCHES.values()) != launches:
+        raise AssertionError(f"launches by layout {LAYOUT_LAUNCHES} do not add up to {launches}")
+    keep = ("rows", "mode", "ms", "graph_ms", "plain_ms", "library_ms", "library_noclip_ms",
+            "bound_ms", "bound_by", "bound_share", "max_abs_err")
+    shapes = {**times, **analysis_times}
+    # each layout's row: its times at the shape where the paths launch it most
+    rows = (("planes_bf16", "tx", "main-path TX, sc bf16 planes [8192, 2048]"),
+            ("planes_f32", "scan_sc_f32", "radiation-scan chunk, sc f32 planes [2560, 2048]"),
+            ("interleaved_bf16", "tx_interleaved_bf16",
+             "MU TX, sc complex64 rounded to bf16 [8192, 2048]"),
+            ("interleaved_f32", "psd_full_interleaved_f32",
+             "PSD transmit and fused_ifft_clip_fft, full complex64 [6400, 4096]"))
+    kernels = {"kernels": [{
+        "name": f"fused_ifft_pa_fft[{layout}]", "route": "cuda",
+        "source": "mimo_ofdm_tpu_torch/csrc/fused_pa.cu",
+        "replaces": "mimo_ofdm_tpu/kernels/fused_pa.py:113",
+        "replaces_function": "mimo_ofdm_tpu/kernels/fused_pa.py::fused_ifft_clip_fft",
+        "launches": LAYOUT_LAUNCHES.get(layout, 0),
+        "max_abs_err": shapes[key]["max_abs_err"],
+        "ms": shapes[key]["ms"], "plain_ms": shapes[key]["plain_ms"],
+        "bound_ms": shapes[key]["bound_ms"], "bound_by": shapes[key]["bound_by"],
+        "library_ms": shapes[key]["library_ms"], "bound_share": shapes[key]["bound_share"],
+        "graph_ms": shapes[key]["graph_ms"], "shape": what,
+        "shapes": {k: {f: t[f] for f in keep} for k, t in shapes.items()
+                   if t["layout"] == layout},
+        "card": smi} for layout, key, what in rows]}
+    kernels["kernels"][0].update(
+        launches_all_layouts=launches,
+        launches_by_path={k: p["launches"] for k, p in paths.items()},
+        max_rel_err=RESULTS["kernel_summary"]["worst_rel_err"],
+        entry_points={"fused_ifft_clip_fft": {
+            f: clip[f] for f in ("shape", "ms", "graph_ms", "plain_ms", "library_ms",
+                                 "library_noclip_ms", "planes_ms", "planes_graph_ms",
+                                 "bound_ms", "bound_by", "bound_share", "rel_err",
+                                 "max_abs_err", "launches")}})
+    missing = [k["name"] for k in kernels["kernels"] if not k["launches"]]
+    if missing:
+        raise AssertionError(f"layouts the paths never launched: {missing}")
+    return kernels
 
 
 def main() -> int:
@@ -1774,9 +2079,11 @@ def main() -> int:
     for r in resources:
         print(json.dumps({"phase": "build", "instantiation": r}), flush=True)
     emit("build", seconds=seconds, instantiations=len(resources))
-    spills = [r for r in resources if r["n_fft"] == 4096 and r["local_bytes"]]
-    if spills:
-        raise AssertionError(f"4096-point instantiations spill: {spills}")
+    # every 4096-point instantiation, each layout: no spills, 2 blocks an SM
+    short = [r for r in resources if r["n_fft"] == 4096
+             and (r["local_bytes"] or r["blocks_per_sm"] < 2)]
+    if short:
+        raise AssertionError(f"4096-point instantiations spill or hold < 2 blocks/SM: {short}")
 
     emit("kernel_summary", **kernel_checks(fp, dev))
     snr_los = float(metrics.ebn0_to_snr(CANONICAL_EBN0_DB, 2048, 2048, 64))
@@ -1795,33 +2102,7 @@ def main() -> int:
     paths.update(scale_out(fp, config, link, link_mu, link_ldpc, ber_sweeps, dev, args.batch,
                            snr_los, snr_coded, smi))
     paths.update(components(fp, config, link, dev, snr_los, smi, args.batch))
-    clip = paths["components_fused_ifft_clip_fft"]
-
-    tx = times["tx"]
-    launches = sum(p["launches"] for p in paths.values())
-    kernels = {"kernels": [{
-        "name": "fused_ifft_pa_fft", "route": "cuda",
-        "source": "mimo_ofdm_tpu_torch/csrc/fused_pa.cu",
-        "replaces": "mimo_ofdm_tpu/kernels/fused_pa.py:113",
-        "replaces_function": "mimo_ofdm_tpu/kernels/fused_pa.py::fused_ifft_clip_fft",
-        "launches": launches,
-        "launches_by_path": {k: p["launches"] for k, p in paths.items()},
-        "max_abs_err": tx["max_abs_err"],
-        "max_rel_err": RESULTS["kernel_summary"]["worst_rel_err"],
-        "ms": tx["ms"], "plain_ms": tx["plain_ms"], "bound_ms": tx["bound_ms"],
-        "bound_by": tx["bound_by"], "library_ms": tx["library_ms"],
-        "bound_share": tx["bound_share"], "graph_ms": tx["graph_ms"],
-        "cnc_replica_ms": times["cnc_replica"]["ms"],
-        "cnc_replica_graph_ms": times["cnc_replica"]["graph_ms"],
-        "shape": f"sc bf16 [{tx['rows']}, 2048] n_fft 4096",
-        "analysis_shapes": {k: {f: t[f] for f in ("rows", "mode", "ms", "graph_ms", "plain_ms",
-                                                  "library_ms", "bound_ms", "bound_by",
-                                                  "bound_share", "max_abs_err")}
-                            for k, t in analysis_times.items()},
-        "entry_points": {"fused_ifft_clip_fft": {
-            f: clip[f] for f in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                                 "bound_by", "rel_err", "max_abs_err", "launches")}},
-        "card": smi}]}
+    kernels = kernels_line(paths, times, analysis_times, smi)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

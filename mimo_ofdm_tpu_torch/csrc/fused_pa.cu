@@ -1,4 +1,4 @@
-// Fused OFDM transmit chain over rows of real/imag planes:
+// Fused OFDM transmit chain over rows of complex points:
 //
 //     out = FFT_ortho( PA( IFFT_ortho( in ) ) )
 //
@@ -13,12 +13,23 @@
 //          bin layout of ops/ofdm.py (DC and guard bins zero), and write back
 //          only the data bins in the same order, bin n_sc/2 last.
 //
+// Four I/O layouts; only how one point is read and written differs (struct
+// Planes, struct Interleaved), the index maps and the 1/sqrt(n) stay shared:
+//   planes f32, planes bf16 : separate real and imag planes of that type;
+//   interleaved f32         : complex64, one float2 a point (the Pallas
+//                             kernel's own complex64 contract);
+//   interleaved bf16        : complex64 whose two halves are rounded to bf16
+//                             on load and on store, which gives the bits of
+//                             bf16 planes cast from and back to complex64.
+// A complex64 caller thus needs no copies into planes and back.
+//
 // What bounds it on an H100 (SXM, 3.35 TB/s, 67 TFLOP/s f32 without tensor
 // cores). Per canonical row (n_fft 4096, n_sc 2048, sc mode, bf16 planes) the
 // kernel moves 16 KB (4.9 ns at 3.35 TB/s) and the two transforms need 0.33
 // MFLOP (5.0 ns at 67 TFLOP/s; split-radix count less the zero and dropped
 // bins, kernels/fused_pa.py::flops_per_row): bytes and operations bound it
-// about equally.
+// about equally. The f32 and interleaved layouts move 8 bytes a point each
+// way, 32 KB a row: there the bytes bound it, twice over.
 // In practice a transform that keeps its row on chip is held back by the
 // traffic between threads (an SM's shared memory serves 128 bytes a clock;
 // one pass through it per radix-4 stage moves about 1 MB a row, eight times
@@ -50,9 +61,11 @@
 //     Pallas kernel's permutation cancellation, carried into registers.
 //   * Loads and stores go straight between device memory and registers:
 //     register j of thread t is bin t + (n_fft/16) j, so for each j a warp
-//     touches consecutive bins. The sc maps and the ortho 1/sqrt(n_fft) are
-//     applied there. Each block first asks L2 for the input of the block one
-//     wave later, so that block's loads wait on L2, not on device memory.
+//     touches consecutive bins (in the interleaved layouts one 8-byte float2
+//     a thread, 256 contiguous bytes a warp). The sc maps and the ortho
+//     1/sqrt(n_fft) are applied there. Each block first asks L2 for the
+//     input of the block one wave later, so that block's loads wait on L2,
+//     not on device memory.
 //   * Two resident blocks per SM (__launch_bounds__(256, 2), at most 128
 //     registers a thread, no spills). Three would need 80 registers, and
 //     ptxas then spills.
@@ -88,16 +101,44 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
-// (re[i], im[i]) * s in f32, and its store
-template <typename T>
-__device__ __forceinline__ float2 get(const T* re, const T* im, int i, float s) {
-  return make_float2(to_f32(re[i]) * s, to_f32(im[i]) * s);
+// x rounded to bf16 (nearest even, as torch casts) and widened back
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
+
+// The I/O layouts. `Elem` is the element type of the arrays the kernel is
+// handed, `kStreams` the number of arrays a side (the second is unused, and
+// null, when it is 1); load() reads point i of a row as f32 and store()
+// writes one, both before and after the shared 1/sqrt(n) scaling.
 template <typename T>
-__device__ __forceinline__ void put(T* re, T* im, int i, float2 v, float s) {
-  re[i] = from_f32<T>(v.x * s);
-  im[i] = from_f32<T>(v.y * s);
-}
+struct Planes {   // real and imag planes of T
+  using Elem = T;
+  static constexpr int kStreams = 2;
+  static __device__ __forceinline__ float2 load(const T* __restrict__ re,
+                                                const T* __restrict__ im, int i) {
+    return make_float2(to_f32(re[i]), to_f32(im[i]));
+  }
+  static __device__ __forceinline__ void store(T* __restrict__ re, T* __restrict__ im,
+                                               int i, float2 v) {
+    re[i] = from_f32<T>(v.x);
+    im[i] = from_f32<T>(v.y);
+  }
+};
+
+template <bool BF16>
+struct Interleaved {   // complex64; with BF16 each half rounded to bf16 both ways
+  using Elem = float2;
+  static constexpr int kStreams = 1;
+  static __device__ __forceinline__ float2 load(const float2* __restrict__ x,
+                                                const float2*, int i) {
+    const float2 v = x[i];
+    return BF16 ? make_float2(bf16_round(v.x), bf16_round(v.y)) : v;
+  }
+  static __device__ __forceinline__ void store(float2* __restrict__ x, float2*, int i,
+                                               float2 v) {
+    x[i] = BF16 ? make_float2(bf16_round(v.x), bf16_round(v.y)) : v;
+  }
+};
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -273,15 +314,19 @@ __device__ __forceinline__ void apply_pa(float2* v, float sat, float coeff,
 //   exchange 1: write k TPR + t (register k), read k TPR + a + R b (register b)
 //   exchange 2: write k TPR + c R + a (register c), read
 //               k TPR + (a (16/R) + cl) R + aa (register cl R + aa)
-template <int LOG2N, bool SC, typename T>
+template <int LOG2N, bool SC, typename IO>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-fused_ifft_pa_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
-                         T* __restrict__ outr, T* __restrict__ outi,
+fused_ifft_pa_fft_kernel(const typename IO::Elem* __restrict__ xr,
+                         const typename IO::Elem* __restrict__ xi,
+                         typename IO::Elem* __restrict__ outr,
+                         typename IO::Elem* __restrict__ outi,
                          const float* __restrict__ sat,
                          const float* __restrict__ coeff,
                          const float2* __restrict__ tw, int rows, int n_io,
                          int pa_model, float rapp_p, float rapp_exp,
                          float norm, int ahead) {
+  using T = typename IO::Elem;
+  constexpr bool kTwo = IO::kStreams == 2;
   constexpr int N = 1 << LOG2N;
   constexpr int TPR = N / kPoints;     // threads per row
   constexpr int R = N / 256;           // radix of the third pass (1: none)
@@ -299,10 +344,10 @@ fused_ifft_pa_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   const float2* __restrict__ tw1 = tw + t;                  // [k TPR] = W^(t k)
   const float2* __restrict__ tw2 = tw + kPoints * TPR + a;  // [c R] = W^(16 a c)
   const size_t off = live ? static_cast<size_t>(row) * n_io : 0;
-  // Register j holds bin p = t + TPR j. It lies in the planes at p (full
+  // Register j holds bin p = t + TPR j. It lies in the row at p (full
   // mode); in sc mode at p + h - 1 in the positive band 1 <= p <= h, at
   // p - (N - h) in the negative band p >= N - h, and nowhere for DC and the
-  // guard band.
+  // guard band. The same index serves every layout.
   const int h = n_io >> 1;
   float2 v[kPoints];
 
@@ -313,22 +358,26 @@ fused_ifft_pa_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   if (next < rows) {
     const size_t bytes = static_cast<size_t>(min(static_cast<long long>(RPB), rows - next)) * n_io * sizeof(T);
     const char* nr = reinterpret_cast<const char*>(xr + next * n_io);
-    const char* ni = reinterpret_cast<const char*>(xi + next * n_io);
+    [[maybe_unused]] const char* ni =
+        kTwo ? reinterpret_cast<const char*>(xi + next * n_io) : nullptr;
     for (size_t b = threadIdx.x * 128; b < bytes; b += kThreads * 128) {
       asm volatile("prefetch.global.L2 [%0];" ::"l"(nr + b));
-      asm volatile("prefetch.global.L2 [%0];" ::"l"(ni + b));
+      if constexpr (kTwo) asm volatile("prefetch.global.L2 [%0];" ::"l"(ni + b));
     }
   }
 
   // load, with the IFFT's 1/sqrt(n) folded in
   const T* __restrict__ rr = xr + off;
-  const T* __restrict__ ri = xi + off;
+  const T* __restrict__ ri = kTwo ? xi + off : nullptr;
 #pragma unroll
   for (int j = 0; j < kPoints; ++j) {
     const int p = t + TPR * j;
     v[j] = make_float2(0.0f, 0.0f);
     const int src = !SC ? p : (p >= 1 && p <= h) ? h + p - 1 : (p >= N - h ? p - (N - h) : -1);
-    if (live && src >= 0) v[j] = get(rr, ri, src, norm);
+    if (live && src >= 0) {
+      const float2 u = IO::load(rr, ri, src);
+      v[j] = make_float2(u.x * norm, u.y * norm);
+    }
   }
 
   // IFFT pass 1: DFT-16 over j -> k, twiddle conj(W^(t k))
@@ -393,7 +442,7 @@ fused_ifft_pa_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   // store, with the FFT's 1/sqrt(n) folded in
   if (!live) return;
   T* __restrict__ wr = outr + off;
-  T* __restrict__ wi = outi + off;
+  T* __restrict__ wi = kTwo ? outi + off : nullptr;
   // h again, hidden from the compiler: otherwise it keeps the 16 load
   // indices live through both transforms to reuse them here, which costs
   // registers and, at two resident blocks per SM, time
@@ -403,14 +452,14 @@ fused_ifft_pa_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   for (int j = 0; j < kPoints; ++j) {
     const int p = t + TPR * j;
     const int dst = !SC ? p : (p >= 1 && p <= hs) ? hs + p - 1 : (p >= N - hs ? p - (N - hs) : -1);
-    if (dst >= 0) put(wr, wi, dst, v[j], norm);
+    if (dst >= 0) IO::store(wr, wi, dst, make_float2(v[j].x * norm, v[j].y * norm));
   }
 }
 
 // Sets one instantiation up on the current device, once per device (the
 // calls cost microseconds of host time): lets it take kSmemBytes of dynamic
 // shared memory, and writes how many of its blocks the card holds at once.
-template <int LOG2N, bool SC, typename T>
+template <int LOG2N, bool SC, typename IO>
 int setup(int* resident) {
   static std::atomic<int> cache[64];   // per device; 0 until set up
   int dev = 0;
@@ -418,7 +467,7 @@ int setup(int* resident) {
   if (err != cudaSuccess) return static_cast<int>(err);
   *resident = cache[dev & 63].load(std::memory_order_relaxed);
   if (*resident) return 0;
-  auto kern = fused_ifft_pa_fft_kernel<LOG2N, SC, T>;
+  auto kern = fused_ifft_pa_fft_kernel<LOG2N, SC, IO>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0, sms = 0;
@@ -440,13 +489,14 @@ struct LaunchArgs {
   float rapp_p, rapp_exp, norm;
   cudaStream_t stream;
 
-  template <int LOG2N, bool SC, typename T>
+  template <int LOG2N, bool SC, typename IO>
   int run() const {
+    using T = typename IO::Elem;
     int resident = 0;
-    if (const int err = setup<LOG2N, SC, T>(&resident)) return err;
+    if (const int err = setup<LOG2N, SC, IO>(&resident)) return err;
     constexpr int rpb = kThreads / ((1 << LOG2N) / kPoints);
     const int blocks = (rows + rpb - 1) / rpb;
-    fused_ifft_pa_fft_kernel<LOG2N, SC, T><<<blocks, kThreads, kSmemBytes, stream>>>(
+    fused_ifft_pa_fft_kernel<LOG2N, SC, IO><<<blocks, kThreads, kSmemBytes, stream>>>(
         static_cast<const T*>(xr), static_cast<const T*>(xi),
         static_cast<T*>(outr), static_cast<T*>(outi), sat, coeff, tw, rows, n_io,
         pa_model, rapp_p, rapp_exp, norm, resident);
@@ -459,11 +509,11 @@ struct LaunchArgs {
 struct AttributesArgs {
   int* out;
 
-  template <int LOG2N, bool SC, typename T>
+  template <int LOG2N, bool SC, typename IO>
   int run() const {
-    auto kern = fused_ifft_pa_fft_kernel<LOG2N, SC, T>;
+    auto kern = fused_ifft_pa_fft_kernel<LOG2N, SC, IO>;
     int resident = 0;
-    if (const int e = setup<LOG2N, SC, T>(&resident)) return e;
+    if (const int e = setup<LOG2N, SC, IO>(&resident)) return e;
     cudaFuncAttributes fa;
     cudaError_t err = cudaFuncGetAttributes(&fa, kern);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -479,50 +529,61 @@ struct AttributesArgs {
   }
 };
 
-template <bool SC, typename T, typename Op>
+template <bool SC, typename IO, typename Op>
 int by_size(const Op& op, int log2n) {
   switch (log2n) {
-    case 8: return op.template run<8, SC, T>();
-    case 9: return op.template run<9, SC, T>();
-    case 10: return op.template run<10, SC, T>();
-    case 11: return op.template run<11, SC, T>();
-    case 12: return op.template run<12, SC, T>();
+    case 8: return op.template run<8, SC, IO>();
+    case 9: return op.template run<9, SC, IO>();
+    case 10: return op.template run<10, SC, IO>();
+    case 11: return op.template run<11, SC, IO>();
+    case 12: return op.template run<12, SC, IO>();
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <typename IO, typename Op>
+int by_mode(const Op& op, int log2n, int sc_mode) {
+  return sc_mode ? by_size<true, IO>(op, log2n) : by_size<false, IO>(op, log2n);
+}
+
+// 5 sizes x 2 modes x 4 layouts: 40 instantiations
 template <typename Op>
-int dispatch(const Op& op, int log2n, int sc_mode, int bf16) {
-  if (bf16)
-    return sc_mode ? by_size<true, __nv_bfloat16>(op, log2n)
-                   : by_size<false, __nv_bfloat16>(op, log2n);
-  return sc_mode ? by_size<true, float>(op, log2n) : by_size<false, float>(op, log2n);
+int dispatch(const Op& op, int log2n, int sc_mode, int bf16, int interleaved) {
+  if (interleaved)
+    return bf16 ? by_mode<Interleaved<true>>(op, log2n, sc_mode)
+                : by_mode<Interleaved<false>>(op, log2n, sc_mode);
+  return bf16 ? by_mode<Planes<__nv_bfloat16>>(op, log2n, sc_mode)
+              : by_mode<Planes<float>>(op, log2n, sc_mode);
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. Pointers are device pointers of contiguous
-// tensors; `tw` is kernels/fused_pa.py::twiddle_table(n_fft) on the device;
-// `stream` is the cudaStream_t of the caller's current stream. Returns
-// cudaGetLastError() after the launch (0 on success).
+// tensors: real and imag planes (float or bf16 by `bf16`), or with
+// `interleaved` one complex64 array a side in xr/outr (xi, outi null), its
+// halves rounded to bf16 on load and store when `bf16` is set. `tw` is
+// kernels/fused_pa.py::twiddle_table(n_fft) on the device; `stream` is the
+// cudaStream_t of the caller's current stream. Returns cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int fused_ifft_pa_fft_launch(const void* xr, const void* xi,
                                         void* outr, void* outi,
                                         const float* sat, const float* coeff,
                                         const void* tw, int rows, int log2n,
                                         int n_io, int sc_mode, int bf16,
-                                        int pa_model, float rapp_p,
-                                        float rapp_exp, float norm,
-                                        void* stream) {
+                                        int interleaved, int pa_model,
+                                        float rapp_p, float rapp_exp,
+                                        float norm, void* stream) {
   if (rows <= 0) return 0;
   const LaunchArgs args{xr, xi, outr, outi, sat, coeff,
                         static_cast<const float2*>(tw), rows, n_io, pa_model,
                         rapp_p, rapp_exp, norm, static_cast<cudaStream_t>(stream)};
-  return dispatch(args, log2n, sc_mode, bf16);
+  return dispatch(args, log2n, sc_mode, bf16, interleaved);
 }
 
 // Resources of one instantiation, written to out[0..4]: registers a thread,
 // local memory bytes a thread, static and dynamic shared memory bytes a
 // block, resident blocks per SM. Returns a CUDA error code (0 on success).
-extern "C" int fused_ifft_pa_fft_attributes(int log2n, int sc_mode, int bf16, int* out) {
-  return dispatch(AttributesArgs{out}, log2n, sc_mode, bf16);
+extern "C" int fused_ifft_pa_fft_attributes(int log2n, int sc_mode, int bf16,
+                                            int interleaved, int* out) {
+  return dispatch(AttributesArgs{out}, log2n, sc_mode, bf16, interleaved);
 }

@@ -16,10 +16,17 @@ coefficient per row, and returns planes of the same shape and dtype:
 Both transforms are ortho-normalized and run in float32; bf16 planes are
 converted at load and store only.
 
-For a CUDA tensor the wrapper launches the kernel (built with ``nvcc`` at
+:func:`fused_ifft_pa_fft_complex` is the same function on interleaved
+complex64 ``[..., n_io]``, in and out, which the kernel reads and writes as
+it is (no planes): ``storage="bfloat16"`` rounds each half to bf16 on the
+way in and out, and so gives the bits of bf16 planes cast from and back to
+complex64. :func:`fused_ifft_clip_fft` is its ``full`` mode at float32.
+
+For a CUDA tensor the wrappers launch the kernel (built with ``nvcc`` at
 first use into ``mimo_ofdm_tpu_torch/_build/`` and loaded with ``ctypes``)
-or raises. For a CPU tensor it runs :func:`fused_ifft_pa_fft_plain`. The
-wrapper counts kernel launches in ``fused_ifft_pa_fft.launches``; setting
+or raise. For a CPU tensor they run :func:`fused_ifft_pa_fft_plain`. Both
+count kernel launches in ``fused_ifft_pa_fft.launches``, and by I/O layout
+(:data:`LAYOUTS`) in ``fused_ifft_pa_fft.launches_by_layout``; setting
 ``fused_ifft_pa_fft.force_plain = True`` runs the plain version on CUDA
 tensors too, for comparing the two inside a whole frame (tests and
 ``chip_smoke.py`` only).
@@ -50,6 +57,10 @@ from mimo_ofdm_tpu_torch.ops import ofdm
 from mimo_ofdm_tpu_torch.ops.pa import PA_MODELS, apply_pa_planar
 
 MODES = ("full", "sc")
+STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the kernel's I/O layouts: name -> (interleaved complex64, bf16 rounding)
+LAYOUTS = {"planes_f32": (False, False), "planes_bf16": (False, True),
+           "interleaved_f32": (True, False), "interleaved_bf16": (True, True)}
 N = 4096             # the one length fused_ifft_clip_fft takes, as the TPU kernel
 N_FFT_RANGE = (256, 4096)
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -74,6 +85,14 @@ def check_shapes(n_fft: int, n_io: int, mode: str) -> None:
             raise ValueError(f"sc mode needs an even n_sc < n_fft={n_fft}, got {n_io}")
     else:
         raise ValueError(f"unknown mode {mode!r} (expected one of {MODES})")
+
+
+def storage_dtype(storage: str) -> torch.dtype:
+    """The dtype named by a chain's ``storage``; raises for other names."""
+    if storage not in STORAGE_DTYPES:
+        raise ValueError(f"unknown storage {storage!r} "
+                         f"(expected one of {tuple(STORAGE_DTYPES)})")
+    return STORAGE_DTYPES[storage]
 
 
 def flops_per_row(n_fft: int, mode: str) -> int:
@@ -139,31 +158,32 @@ def build_library() -> tuple[ctypes.CDLL, str]:
     lib = ctypes.CDLL(str(so))
     fn = lib.fused_ifft_pa_fft_launch
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, cf,
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, cf,
                    cf, vp]
     fn.restype = ci
     attrs = lib.fused_ifft_pa_fft_attributes
-    attrs.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+    attrs.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
     attrs.restype = ci
     report = report_path.read_text() if report_path.exists() else ""
     return lib, report
 
 
 def kernel_resources() -> list[dict]:
-    """Every instantiation's resources, as the runtime reads them from the
-    loaded kernel on the current card: registers, local memory (non-zero
-    when ptxas spills), shared memory, resident blocks per SM."""
+    """Every instantiation's resources (each size, mode and I/O layout), as
+    the runtime reads them from the loaded kernel on the current card:
+    registers, local memory (non-zero when ptxas spills), shared memory,
+    resident blocks per SM."""
     lib, _ = build_library()
     rows = []
     for log2n in range(N_FFT_RANGE[0].bit_length() - 1, N_FFT_RANGE[1].bit_length()):
         for mode in MODES:
-            for dtype in ("float32", "bfloat16"):
+            for layout, (interleaved, bf16) in LAYOUTS.items():
                 buf = (ctypes.c_int * 5)()
                 err = lib.fused_ifft_pa_fft_attributes(
-                    log2n, int(mode == "sc"), int(dtype == "bfloat16"), buf)
+                    log2n, int(mode == "sc"), int(bf16), int(interleaved), buf)
                 if err:
                     raise RuntimeError(f"fused_ifft_pa_fft_attributes: CUDA error {err}")
-                rows.append({"n_fft": 1 << log2n, "mode": mode, "dtype": dtype,
+                rows.append({"n_fft": 1 << log2n, "mode": mode, "layout": layout,
                              "registers": buf[0],
                              "local_bytes": buf[1], "static_smem_bytes": buf[2],
                              "dynamic_smem_bytes": buf[3], "blocks_per_sm": buf[4]})
@@ -326,25 +346,38 @@ def _row_param(v, lead, device) -> torch.Tensor:
                               lead).contiguous()
 
 
-def _launch(xr, xi, sat, coeff, pa_model, n_fft, mode, rapp_p):
-    for name, t in (("xr", xr), ("xi", xi), ("sat", sat), ("cubic_coeff", coeff)):
+def _check_call(pa_model: str, n_fft: int, n_io: int, mode: str, device) -> None:
+    if pa_model not in PA_MODELS:
+        raise ValueError(f"unknown PA model {pa_model!r}")
+    check_shapes(n_fft, n_io, mode)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel for device {device}")
+
+
+def _launch(ins, outs, n_io, sat, coeff, pa_model, n_fft, mode, rapp_p, layout):
+    """One launch on contiguous CUDA tensors: ``ins``/``outs`` are the real
+    and imag planes, or one ``view_as_real`` of complex64 each in the
+    interleaved layouts; counted under ``layout``."""
+    interleaved, bf16 = LAYOUTS[layout]
+    for name, t in (*zip(("xr", "xi"), ins), ("sat", sat), ("cubic_coeff", coeff)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     lib, _ = build_library()
-    outr = torch.empty_like(xr)
-    outi = torch.empty_like(xi)
-    rows = xr.numel() // xr.shape[-1]
-    tw = _twiddles(n_fft, xr.device)
-    stream = torch.cuda.current_stream(xr.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (*ins, *outs)]
+    if interleaved:      # one array a side: no imag plane
+        ptrs = [ptrs[0], None, ptrs[1], None]
+    device = ins[0].device
+    tw = _twiddles(n_fft, device)
+    stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.fused_ifft_pa_fft_launch(
-        xr.data_ptr(), xi.data_ptr(), outr.data_ptr(), outi.data_ptr(),
-        sat.data_ptr(), coeff.data_ptr(), tw.data_ptr(), rows,
-        n_fft.bit_length() - 1, xr.shape[-1], int(mode == "sc"),
-        int(xr.dtype == torch.bfloat16), PA_MODELS.index(pa_model),
-        float(rapp_p), -1.0 / (2.0 * rapp_p), 1.0 / math.sqrt(n_fft), stream)
+        *ptrs, sat.data_ptr(), coeff.data_ptr(), tw.data_ptr(), sat.numel(),
+        n_fft.bit_length() - 1, n_io, int(mode == "sc"), int(bf16), int(interleaved),
+        PA_MODELS.index(pa_model), float(rapp_p), -1.0 / (2.0 * rapp_p),
+        1.0 / math.sqrt(n_fft), stream)
     if err:
         raise RuntimeError(f"fused_ifft_pa_fft launch failed: CUDA error {err}")
-    return outr, outi
+    fused_ifft_pa_fft.launches += 1
+    fused_ifft_pa_fft.launches_by_layout[layout] += 1
 
 
 def fused_ifft_pa_fft(xr: torch.Tensor, xi: torch.Tensor, sat,
@@ -359,42 +392,78 @@ def fused_ifft_pa_fft(xr: torch.Tensor, xi: torch.Tensor, sat,
         raise ValueError("xr and xi must share shape, dtype and device")
     if xr.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"planes must be float32 or bfloat16, got {xr.dtype}")
-    if pa_model not in PA_MODELS:
-        raise ValueError(f"unknown PA model {pa_model!r}")
-    check_shapes(n_fft, xr.shape[-1], mode)
+    _check_call(pa_model, n_fft, xr.shape[-1], mode, xr.device)
     lead = xr.shape[:-1]
     sat = _row_param(sat, lead, xr.device)
     coeff = _row_param(cubic_coeff, lead, xr.device)
-    if not (xr.is_cuda or xr.device.type == "cpu"):
-        raise ValueError(f"no kernel for device {xr.device}")
     if xr.numel() == 0:                 # no rows: nothing to compute or launch
         return torch.empty_like(xr), torch.empty_like(xi)
     if xr.device.type == "cpu" or fused_ifft_pa_fft.force_plain:
         return fused_ifft_pa_fft_plain(xr, xi, sat, coeff, pa_model=pa_model,
                                        n_fft=n_fft, mode=mode, rapp_p=rapp_p)
-    out = _launch(xr, xi, sat, coeff, pa_model, n_fft, mode, rapp_p)
-    fused_ifft_pa_fft.launches += 1
-    return out
+    outr, outi = torch.empty_like(xr), torch.empty_like(xi)
+    _launch((xr, xi), (outr, outi), xr.shape[-1], sat, coeff, pa_model, n_fft, mode,
+            rapp_p, "planes_bf16" if xr.dtype == torch.bfloat16 else "planes_f32")
+    return outr, outi
 
 
 fused_ifft_pa_fft.launches = 0
+fused_ifft_pa_fft.launches_by_layout = dict.fromkeys(LAYOUTS, 0)
 fused_ifft_pa_fft.force_plain = False
+
+
+def fused_ifft_pa_fft_complex(x: torch.Tensor, sat, cubic_coeff=0.0, *,
+                              pa_model: str, n_fft: int, mode: str,
+                              rapp_p: float = 1.1, storage: str = "float32"
+                              ) -> torch.Tensor:
+    """:func:`fused_ifft_pa_fft` on complex64 ``[..., n_io]``, returning
+    complex64 of that shape, in one launch of the kernel's interleaved
+    layout (counted in ``fused_ifft_pa_fft.launches``). ``storage`` names
+    the dtype of the planes whose bits it gives: ``"bfloat16"`` rounds the
+    input's halves to bf16 and the output's too, as ``.real``/``.imag``
+    cast to bf16 planes and the result cast back would.
+
+    Complex128 raises: cast to bf16 from float64 it rounds once, from
+    complex64 twice, so its callers keep the plane route. A CPU tensor (or
+    ``force_plain``) runs the plain version on such planes, bit for bit the
+    plane route's result."""
+    if x.dtype != torch.complex64:
+        raise ValueError(f"x must be complex64, got {x.dtype}")
+    st = storage_dtype(storage)
+    _check_call(pa_model, n_fft, x.shape[-1], mode, x.device)
+    lead = x.shape[:-1]
+    sat = _row_param(sat, lead, x.device)
+    coeff = _row_param(cubic_coeff, lead, x.device)
+    if x.numel() == 0:
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if x.device.type == "cpu" or fused_ifft_pa_fft.force_plain:
+        pr, pi = fused_ifft_pa_fft_plain(x.real.to(st), x.imag.to(st), sat, coeff,
+                                         pa_model=pa_model, n_fft=n_fft, mode=mode,
+                                         rapp_p=rapp_p)
+        return torch.complex(pr.float(), pi.float())
+    # one float2 array: no lazy conjugate or negative, no strides
+    x = x.resolve_conj().resolve_neg().contiguous()
+    out = torch.empty_like(x)
+    _launch((torch.view_as_real(x),), (torch.view_as_real(out),), x.shape[-1], sat, coeff,
+            pa_model, n_fft, mode, rapp_p,
+            "interleaved_bf16" if st == torch.bfloat16 else "interleaved_f32")
+    return out
 
 
 def fused_ifft_clip_fft(x_fd: torch.Tensor, sat_power) -> torch.Tensor:
     """``FFT(softlimit(IFFT(x_fd)))`` with ortho norms: the kernel's
-    ``full`` mode on complex64 ``[..., 4096]`` frames with one scalar
-    saturation power (a Python float or a 0-d tensor), returning complex64
-    of the same shape (``mimo_ofdm_tpu/kernels/fused_pa.py:113-152``). Like
-    the TPU kernel it takes ``N = 4096`` bins and nothing else. A CUDA
-    tensor launches the kernel (counted in ``fused_ifft_pa_fft.launches``),
-    a CPU tensor runs the plain version."""
+    ``full`` mode on complex64 ``[..., 4096]`` frames, read and written
+    interleaved, with one scalar saturation power (a Python float or a 0-d
+    tensor), returning complex64 of the same shape
+    (``mimo_ofdm_tpu/kernels/fused_pa.py:113-152``). Like the TPU kernel
+    it takes ``N = 4096`` bins and nothing else. A CUDA tensor launches the
+    kernel (counted in ``fused_ifft_pa_fft.launches``), a CPU tensor runs
+    the plain version."""
     if x_fd.dtype != torch.complex64:
         raise ValueError(f"x_fd must be complex64, got {x_fd.dtype}")
     if x_fd.shape[-1] != N:
         raise ValueError(f"fused_ifft_clip_fft takes {N} bins, got {x_fd.shape[-1]}")
     if isinstance(sat_power, torch.Tensor) and sat_power.ndim:
         raise ValueError("sat_power must be a scalar")
-    outr, outi = fused_ifft_pa_fft(x_fd.real.contiguous(), x_fd.imag.contiguous(),
-                                   sat_power, pa_model="softlim", n_fft=N, mode="full")
-    return torch.complex(outr, outi)
+    return fused_ifft_pa_fft_complex(x_fd, sat_power, pa_model="softlim", n_fft=N,
+                                     mode="full")

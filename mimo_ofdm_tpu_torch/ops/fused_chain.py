@@ -9,16 +9,17 @@ instead of a closure, since it runs inside the kernel.
 
 ``storage`` is the dtype of the planes on either side of the kernel
 (``"bfloat16"`` or ``"float32"``); the transforms run in float32 either
-way.
+way. The complex-ended entry points hand complex64 to the kernel's
+interleaved layout as it is, which gives the same bits without the planes
+(complex128 still goes through planes).
 """
 
 from __future__ import annotations
 
 import torch
 
-from mimo_ofdm_tpu_torch.kernels.fused_pa import check_shapes, fused_ifft_pa_fft
-
-STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+from mimo_ofdm_tpu_torch.kernels.fused_pa import (check_shapes, fused_ifft_pa_fft,
+                                                  fused_ifft_pa_fft_complex, storage_dtype)
 
 
 def kernel_eligible(n_fft: int, n_io: int, mode: str) -> bool:
@@ -29,13 +30,6 @@ def kernel_eligible(n_fft: int, n_io: int, mode: str) -> bool:
     except ValueError:
         return False
     return True
-
-
-def storage_dtype(storage: str) -> torch.dtype:
-    if storage not in STORAGE_DTYPES:
-        raise ValueError(f"unknown storage {storage!r} "
-                         f"(expected one of {tuple(STORAGE_DTYPES)})")
-    return STORAGE_DTYPES[storage]
 
 
 def fused_sc_ifft_pa_fft_planar_io(dr: torch.Tensor, di: torch.Tensor,
@@ -58,7 +52,12 @@ def fused_sc_ifft_pa_fft_planar(data_sc: torch.Tensor, n_fft: int, *,
                                 rapp_p: float = 1.1,
                                 storage: str = "float32") -> torch.Tensor:
     """Complex ``[..., n_sc]`` in, complex64 out: the planar-I/O chain of
-    :func:`fused_sc_ifft_pa_fft_planar_io` with complex ends."""
+    :func:`fused_sc_ifft_pa_fft_planar_io` with complex ends (complex64
+    goes to the kernel as it is)."""
+    if data_sc.dtype == torch.complex64:
+        return fused_ifft_pa_fft_complex(data_sc, sat, cubic_coeff, pa_model=pa_model,
+                                         n_fft=n_fft, mode="sc", rapp_p=rapp_p,
+                                         storage=storage)
     outr, outi = fused_sc_ifft_pa_fft_planar_io(
         data_sc.real, data_sc.imag, n_fft, pa_model=pa_model, sat=sat,
         cubic_coeff=cubic_coeff, rapp_p=rapp_p, storage=storage)
@@ -69,7 +68,11 @@ def fused_ifft_pa_fft_planar(x_fd: torch.Tensor, *, pa_model: str, sat,
                              cubic_coeff=0.0, rapp_p: float = 1.1,
                              storage: str = "float32") -> torch.Tensor:
     """Full-band ``FFT(PA(IFFT(x)))`` of complex ``[..., n_fft]`` frames,
-    complex64 out."""
+    complex64 out (complex64 goes to the kernel as it is)."""
+    if x_fd.dtype == torch.complex64:
+        return fused_ifft_pa_fft_complex(x_fd, sat, cubic_coeff, pa_model=pa_model,
+                                         n_fft=x_fd.shape[-1], mode="full",
+                                         rapp_p=rapp_p, storage=storage)
     st = storage_dtype(storage)
     outr, outi = fused_ifft_pa_fft(
         x_fd.real.to(st).contiguous(), x_fd.imag.to(st).contiguous(), sat,

@@ -11,11 +11,14 @@ codeword of ``ldpc_coded_ber(family="ira")``).
     python -m mimo_ofdm_tpu_torch.utils.profiling [--batch 128] [--rounds 3] [--frames tdl,mu,coded]
 
 Prints one JSON line per frame and arm with the wall time per round, the
-device-busy time per round (sum of kernel durations), the idle share, and
-the kernels that take the most device time, grouped by name; for the coded
+device-busy time per round (sum of kernel durations), the idle share, the
+kernels that take the most device time, grouped by name, and what the
+complex-ended chain calls (``transmit.ifft_pa_fft_sc``/``ifft_pa_fft``)
+cost: their device ms, the fused kernel's share of it, and the ms and
+launches of the rest, the conversions around the kernel; for the coded
 frames the device time by op class (decode, soft demap, chain, rest), the
-kernel launches and the peak device memory of a round instead. Needs a
-CUDA device.
+chain's conversions, the kernel launches and the peak device memory of a
+round instead. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -97,11 +100,13 @@ class ThroughputMeter:
         return self.bits / max(time.perf_counter() - self.t0, 1e-9)
 
 
-def _kernel_times(prof) -> dict[str, list[float]]:
-    """Device time (us) and count of every kernel in the trace, by name."""
+def _kernel_times(prof, skip=()) -> dict[str, list[float]]:
+    """Device time (us) and count of every kernel in the trace, by name;
+    the ``record_function`` ranges named in ``skip``, which the profiler
+    also lays on the device's timeline, are left out."""
     out: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.key in skip:
             continue
         t = getattr(evt, "self_device_time_total", None)
         if t is None:
@@ -111,27 +116,57 @@ def _kernel_times(prof) -> dict[str, list[float]]:
     return out
 
 
+FUSED_KERNEL = "fused_ifft_pa_fft"      # the fused kernel's name, in every instantiation
+
+# the complex-ended chain calls: the fused kernel, and the conversions
+# between complex and planes around it where there are any
+CHAIN_CLASSES = {"chain": ((transmit, "ifft_pa_fft_sc"), (transmit, "ifft_pa_fft"))}
+
+
+def _trace_work(prof, classes) -> dict:
+    """:func:`device_work_by_class` of the profiler's Chrome trace."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return device_work_by_class(json.load(f), classes)
+    finally:
+        os.remove(path)
+
+
+def chain_costs(work: dict, rounds: int) -> dict:
+    """A round's chain device ms, the fused kernel's ms in it, and the ms
+    and launches of the conversions around it (the chain's other work)."""
+    c = work["chain"]
+    return {"chain_ms_per_round": c["ms"] / rounds,
+            "chain_fused_ms_per_round": c["fused_ms"] / rounds,
+            "conversion_ms_per_round": (c["ms"] - c["fused_ms"]) / rounds,
+            "conversion_launches_per_round": (c["kernels"] - c["fused_kernels"]) / rounds}
+
+
 def profile_round(cfg: config.LinkConfig, n_iters: int, batch: int,
                   rounds: int, device="cuda", top: int = 12) -> dict:
     """Profile ``rounds`` rounds after two warm-up rounds; a config with
     several users profiles ``link_mu``'s round at its default two-user
-    geometry."""
+    geometry. The chain calls run inside ``record_function`` ranges
+    (:data:`CHAIN_CLASSES`), so that their conversions can be told apart."""
     make = link_mu.make_mu_round_fn if cfg.modem.n_users > 1 else link.make_round_fn
     round_fn = make(cfg, n_iters, batch, device=device)
     for i in range(2):
         round_fn(1, 1000 + i, 15.0)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with labelled(CHAIN_CLASSES), torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for i in range(rounds):
             round_fn(1, i, 15.0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kt = _kernel_times(prof)
+    kt = _kernel_times(prof, CHAIN_CLASSES)
     busy_us = sum(v[0] for v in kt.values())
     ranked = sorted(kt.items(), key=lambda kv: -kv[1][0])
-    fused = sum(v[0] for k, v in kt.items() if "fused_ifft_pa_fft" in k)
+    fused = sum(v[0] for k, v in kt.items() if FUSED_KERNEL in k)
     return {
         "alg": cfg.rx.algorithm, "batch": batch, "rounds": rounds,
         "wall_ms_per_round": wall * 1e3 / rounds,
@@ -139,6 +174,7 @@ def profile_round(cfg: config.LinkConfig, n_iters: int, batch: int,
         "idle_share": 1.0 - busy_us / 1e6 / wall,
         "fused_pa_ms_per_round": fused / 1e3 / rounds,
         "kernel_launches_per_round": sum(v[1] for v in kt.values()) / rounds,
+        **chain_costs(_trace_work(prof, CHAIN_CLASSES), rounds),
         "top": [{"kernel": k[:120], "ms_per_round": v[0] / 1e3 / rounds,
                  "calls_per_round": v[1] / rounds} for k, v in ranked[:top]],
     }
@@ -177,11 +213,13 @@ def labelled(classes=CODED_CLASSES):
             setattr(mod, name, fn)
 
 
-def device_ms_by_class(trace: dict, labels) -> tuple[dict, int]:
-    """Device time (ms) by op class from a Chrome trace of the profiler, and
-    the number of kernels. A kernel belongs to the innermost labelled range
-    that holds the host call that launched it (matched by correlation id),
-    else to ``rest``; memory copies and sets count as device time too."""
+def device_work_by_class(trace: dict, labels) -> dict:
+    """Device work by op class from a Chrome trace of the profiler: for each
+    class and ``rest``, its device ms, its kernels, and the ms and launches
+    of the fused kernel among them. A kernel belongs to the innermost
+    labelled range that holds the host call that launched it (matched by
+    correlation id), else to ``rest``; memory copies and sets count as
+    device time too."""
     launched_at, spans, work = {}, [], []
     for e in trace["traceEvents"]:
         cat, args = e.get("cat", ""), e.get("args", {})
@@ -190,13 +228,19 @@ def device_ms_by_class(trace: dict, labels) -> tuple[dict, int]:
         elif cat == "user_annotation" and e.get("name") in labels:
             spans.append((e["ts"], e["ts"] + e["dur"], e["name"]))
         elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
-            work.append((e["dur"], args.get("correlation"), cat == "kernel"))
-    out = dict.fromkeys([*labels, "rest"], 0.0)
-    for dur, corr, _ in work:
+            work.append((e["dur"], args.get("correlation"), cat == "kernel",
+                         FUSED_KERNEL in e.get("name", "")))
+    out = {k: {"ms": 0.0, "kernels": 0, "fused_ms": 0.0, "fused_kernels": 0}
+           for k in [*labels, "rest"]}
+    for dur, corr, is_kernel, is_fused in work:
         ts = launched_at.get(corr)
         inside = [sp for sp in spans if ts is not None and sp[0] <= ts <= sp[1]]
-        out[min(inside, key=lambda sp: sp[1] - sp[0])[2] if inside else "rest"] += dur
-    return {k: v / 1e3 for k, v in out.items()}, sum(k for *_, k in work)
+        c = out[min(inside, key=lambda sp: sp[1] - sp[0])[2] if inside else "rest"]
+        c["ms"] += dur / 1e3
+        c["kernels"] += is_kernel
+        c["fused_ms"] += dur / 1e3 if is_fused else 0.0
+        c["fused_kernels"] += is_fused
+    return out
 
 
 def profile_coded_round(round_fn, rounds: int, snr_db: float) -> dict:
@@ -217,20 +261,14 @@ def profile_coded_round(round_fn, rounds: int, snr_db: float) -> dict:
             round_fn(1, i, snr_db)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            by_class, n_kernels = device_ms_by_class(json.load(f), CODED_CLASSES)
-    finally:
-        os.remove(path)
-    busy = sum(by_class.values())
+    work = _trace_work(prof, CODED_CLASSES)
+    busy = sum(c["ms"] for c in work.values())
     return {"rounds": rounds, "wall_ms_per_round": wall * 1e3 / rounds,
             "device_busy_ms_per_round": busy / rounds,
             "idle_share": 1.0 - busy / 1e3 / wall,
-            "device_ms_per_round_by_class": {k: v / rounds for k, v in by_class.items()},
-            "kernel_launches_per_round": n_kernels / rounds,
+            "device_ms_per_round_by_class": {k: c["ms"] / rounds for k, c in work.items()},
+            **chain_costs(work, rounds),
+            "kernel_launches_per_round": sum(c["kernels"] for c in work.values()) / rounds,
             "peak_memory_bytes": peak}
 
 

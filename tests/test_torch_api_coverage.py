@@ -49,7 +49,8 @@ NAME_MAP = {
     "ops/mxu_fft.py::fft_from_digit_swapped":
         "the kernel's FFT passes in registers (`kernels/fused_pa.py::schedule`)",
     "ops/mxu_fft.py::fused_ifft_pa_fft":
-        "`kernels/fused_pa.py::fused_ifft_pa_fft(mode=\"full\")`, on planes",
+        "`kernels/fused_pa.py::fused_ifft_pa_fft_complex(mode=\"full\")` on complex64, "
+        "`fused_ifft_pa_fft(mode=\"full\")` on planes",
     "*(pa_fn_planar)":
         "`pa_model`, `sat`, `cubic_coeff`, `rapp_p`: the PA runs inside the kernel, so it "
         "is named, not passed as a closure",

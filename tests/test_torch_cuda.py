@@ -146,6 +146,137 @@ def test_rejects_non_contiguous(cuda):
         KERNEL(x, x, 1.0, n_fft=1024)
 
 
+# --- the interleaved complex64 layout (fused_ifft_pa_fft_complex) -------------
+
+STORAGES = {"float32": (torch.float32, 1e-5), "bfloat16": (torch.bfloat16, 1e-2)}
+
+
+def _bits(z):
+    """complex64 as its int32 halves: equal only if every bit is."""
+    return torch.view_as_real(z.resolve_conj().contiguous()).view(torch.int32)
+
+
+def _layouts(x, sat, coeff=0.0, storage="float32", **kw):
+    """The interleaved layout's result, the plane layout's on the same
+    complex64 input (the planes cast to the storage dtype and the result
+    cast back, as the complex-ended chain calls did before they had the
+    interleaved layout) and the plain version's; one launch of each
+    layout."""
+    st, _ = STORAGES[storage]
+    interleaved = f"interleaved_{'bf16' if st == torch.bfloat16 else 'f32'}"
+    before, by_layout = KERNEL.launches, KERNEL.launches_by_layout[interleaved]
+    got = fused_pa.fused_ifft_pa_fft_complex(x, sat, coeff, storage=storage, **kw)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    assert KERNEL.launches_by_layout[interleaved] == by_layout + 1
+    xr, xi = x.real.to(st).contiguous(), x.imag.to(st).contiguous()
+    kr, ki = KERNEL(xr, xi, sat, coeff, **kw)
+    rows = x.shape[:-1]
+    sat_t = torch.broadcast_to(torch.as_tensor(sat, dtype=torch.float32, device=x.device), rows)
+    coeff_t = torch.broadcast_to(torch.as_tensor(coeff, dtype=torch.float32, device=x.device),
+                                 rows)
+    pr, pi = fused_pa.fused_ifft_pa_fft_plain(xr, xi, sat_t, coeff_t, **kw)
+    return (got, torch.complex(kr.float(), ki.float()),
+            torch.complex(pr.float(), pi.float()))
+
+
+def _cplx(g, rows, n, device):
+    return torch.complex(torch.randn(rows, n, generator=g, device=device),
+                         torch.randn(rows, n, generator=g, device=device))
+
+
+@pytest.mark.parametrize("model", ["softlim", "rapp", "toi", "none"])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["sc", "full"])
+@pytest.mark.parametrize("n_fft", [256, 512, 1024, 2048, 4096])
+def test_interleaved_layout_equals_planes(cuda, n_fft, mode, storage, model):
+    g = torch.Generator(device=cuda).manual_seed(n_fft + len(mode) + len(storage))
+    n_io = n_fft // 2 if mode == "sc" else n_fft
+    x = _cplx(g, 24, n_io, cuda)
+    sat = torch.rand(24, generator=g, device=cuda) + 0.1
+    coeff = torch.rand(24, generator=g, device=cuda) * 0.1
+    got, planes, plain = _layouts(x, sat, coeff, storage, pa_model=model, n_fft=n_fft,
+                                  mode=mode)
+    assert torch.equal(_bits(got), _bits(planes))
+    assert _rel(got, plain) < STORAGES[storage][1]
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["sc", "full"])
+@pytest.mark.parametrize("n_fft", [256, 512, 1024, 2048])
+def test_interleaved_ragged_last_block(cuda, n_fft, mode, storage):
+    """37 rows: not a multiple of the 256 / (n_fft / 16) rows of a block."""
+    g = torch.Generator(device=cuda).manual_seed(n_fft * 3 + len(mode))
+    n_io = n_fft // 2 if mode == "sc" else n_fft
+    x = _cplx(g, 37, n_io, cuda)
+    sat = torch.rand(37, generator=g, device=cuda) + 0.1
+    got, planes, plain = _layouts(x, sat, 0.0, storage, pa_model="softlim", n_fft=n_fft,
+                                  mode=mode)
+    assert torch.equal(_bits(got), _bits(planes))
+    assert _rel(got, plain) < STORAGES[storage][1]
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_interleaved_one_row_and_zero_rows(cuda, storage):
+    g = torch.Generator(device=cuda).manual_seed(17)
+    for mode, n_io in (("sc", 2048), ("full", 4096)):
+        got, planes, _ = _layouts(_cplx(g, 1, n_io, cuda), 0.4, 0.0, storage,
+                                  pa_model="softlim", n_fft=4096, mode=mode)
+        assert torch.equal(_bits(got), _bits(planes))
+    before = KERNEL.launches
+    out = fused_pa.fused_ifft_pa_fft_complex(torch.zeros(0, 2048, dtype=torch.complex64,
+                                                         device=cuda), 1.0,
+                                             pa_model="softlim", n_fft=4096, mode="sc",
+                                             storage=storage)
+    assert out.shape == (0, 2048) and out.is_cuda and out.dtype == torch.complex64
+    assert KERNEL.launches == before
+
+
+def test_interleaved_views(cuda):
+    """A lazily conjugated view and a strided view give the bits of their
+    contiguous copies, one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    kw = dict(pa_model="softlim", n_fft=1024, mode="sc", storage="bfloat16")
+    x = _cplx(g, 64, 512, cuda)
+    strided = _cplx(g, 512, 128, cuda).T[::2]
+    for view in (x.conj(), strided):
+        before = KERNEL.launches
+        got = fused_pa.fused_ifft_pa_fft_complex(view, 0.6, **kw)
+        assert KERNEL.launches == before + 1
+        want = fused_pa.fused_ifft_pa_fft_complex(view.resolve_conj().contiguous(), 0.6, **kw)
+        assert torch.equal(_bits(got), _bits(want))
+
+
+def test_chain_calls_launch_only_the_kernel(cuda):
+    """The complex-ended chain calls and fused_ifft_clip_fft run the fused
+    kernel once on complex64, in its interleaved layout, and nothing else
+    but the fill of a scalar saturation power: no plane copies."""
+    from mimo_ofdm_tpu_torch.ops import fused_chain
+    g = torch.Generator(device=cuda).manual_seed(19)
+    sat = torch.rand(64, generator=g, device=cuda) + 0.2
+    coeff = torch.zeros(64, device=cuda)
+    d, f = _cplx(g, 64, 2048, cuda), _cplx(g, 64, 4096, cuda)
+    calls = {
+        "sc_bf16": lambda: fused_chain.fused_sc_ifft_pa_fft_planar(
+            d, 4096, pa_model="softlim", sat=sat, cubic_coeff=coeff, storage="bfloat16"),
+        "full_f32": lambda: fused_chain.fused_ifft_pa_fft_planar(
+            f, pa_model="softlim", sat=sat, cubic_coeff=coeff, storage="float32"),
+        "clip": lambda: fused_pa.fused_ifft_clip_fft(f, 1.5),
+    }
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA}
+        fused = [n for k, n in kernels.items() if "fused_ifft_pa_fft" in k]
+        others = [k for k in kernels if "fused_ifft_pa_fft" not in k]
+        assert fused == [1] and all("Fill" in k for k in others), (name, kernels)
+
+
 def test_frame_kernel_equals_plain(cuda):
     """A small f32 frame through the kernel and through the plain version
     (forced on CUDA tensors) gives the same counters."""

@@ -280,6 +280,38 @@ def test_wallclock_trace_and_throughput_meter(tmp_path, capsys):
     assert meter.frames_per_s > 0 and meter.bits_per_s > meter.frames_per_s
 
 
+def test_device_work_by_class_splits_the_chain():
+    """A synthetic Chrome trace: each kernel goes to the innermost labelled
+    range around its launch, and the fused kernel's ms and launches are
+    told apart from the conversions around it in the chain."""
+    def launch(corr, ts):
+        return {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": ts,
+                "args": {"correlation": corr}}
+
+    def kernel(corr, name, dur):
+        return {"cat": "kernel", "name": name, "ts": 100, "dur": dur,
+                "args": {"correlation": corr}}
+
+    fused = "void (anonymous namespace)::fused_ifft_pa_fft_kernel<12, true, Planes<float> >"
+    trace = {"traceEvents": [
+        {"cat": "user_annotation", "name": "chain", "ts": 10, "dur": 30},
+        {"cat": "user_annotation", "name": "decode", "ts": 50, "dur": 10},
+        launch(1, 12), kernel(1, "elementwise_kernel<copy>", 40.0),
+        launch(2, 20), kernel(2, fused, 200.0),
+        launch(3, 25), kernel(3, "complex_kernel_cuda", 60.0),
+        launch(4, 55), kernel(4, "decode_kernel", 500.0),
+        launch(5, 70), kernel(5, fused, 100.0),
+        {"cat": "gpu_memset", "name": "Memset", "dur": 5.0, "args": {"correlation": 6}}]}
+    work = profiling.device_work_by_class(trace, ("chain", "decode"))
+    assert work["chain"] == pytest.approx({"ms": 0.3, "kernels": 3, "fused_ms": 0.2, "fused_kernels": 1})
+    assert work["decode"] == pytest.approx({"ms": 0.5, "kernels": 1, "fused_ms": 0.0, "fused_kernels": 0})
+    assert work["rest"] == pytest.approx({"ms": 0.105, "kernels": 1, "fused_ms": 0.1, "fused_kernels": 1})
+    costs = profiling.chain_costs(work, rounds=2)
+    assert costs == pytest.approx({"chain_ms_per_round": 0.15, "chain_fused_ms_per_round": 0.1,
+                                   "conversion_ms_per_round": 0.05,
+                                   "conversion_launches_per_round": 1.0})
+
+
 def test_port_imports_without_matplotlib():
     """Importing every module of the port needs no matplotlib (the card's
     machine has none): a fresh interpreter imports them all with
