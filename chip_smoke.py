@@ -117,6 +117,15 @@ Phases, each printing one JSON line:
    its plain version, one launch in the interleaved f32 layout, the same
    bits as the plane route it took before, 1e-5; (d) the CP modem's round
    trip at ``[128, 64, 2048]``, ``cp_len`` 128, 1e-6.
+16. bench: the port's bench (``mimo_ofdm_tpu_torch/bench.py``), bench.py's
+   Rayleigh CNC and MCNC arms at full width in pipelined, interleaved
+   windows (its default batches and depth 3; 3 windows of 1 s an arm):
+   bench.py's keys plus ``device``, 10 launches a round, the consumed
+   counters sane, the medians, windows, peak memory and the ratio to phase
+   4's synchronous rounds; then ``python -m mimo_ofdm_tpu_torch.bench`` in
+   a subprocess, which must print one JSON line with those keys; and the
+   kernel against its plain version at the bench's shapes (the TX on bf16
+   planes, the CNC replica pass interleaved), timed as in phase 6.
 
 Then the ``{"kernels": [...]}`` line, one row per I/O layout with the
 paths' launches in it, the nvidia-smi line, and as the last line
@@ -1945,50 +1954,153 @@ def components(fp, config, link, dev, snr: float, card: str = "", batch: int = 1
     return out
 
 
+# --- phase 16: the port's bench ------------------------------------------------
+
+BENCH_ENV = {"BENCH_WINDOWS": "3", "BENCH_WINDOW_S": "1"}
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "windows", "mcnc_frames_per_s",
+              "mcnc_windows", "device"}
+BENCH_TIMEOUT_S = 600           # the module in a subprocess: its start, warm-up, windows
+
+
+def bench_phase(fp, bench, dev, sync: dict, card: str = "") -> dict:
+    """Phase 16: ``bench.run`` at full width, its default batches and depth,
+    3 windows of 1 s an arm, with the kernel's launch count zeroed just
+    before and read just after; fails unless bench.py's keys plus
+    ``device`` come back, every round launched the kernel 10 times, and the
+    counters the bench consumed are sane (every BER in [0, 0.5), clean
+    below iteration 0, MCNC iteration 8 no worse than iteration 0). Then
+    ``python -m mimo_ofdm_tpu_torch.bench`` once in a subprocess with the
+    same windows, which must print exactly one JSON line with those keys.
+    ``sync`` holds phase 4's synchronous rounds, for the ratio."""
+    kern = fp.fused_ifft_pa_fft
+    settings = bench.settings(BENCH_ENV)
+    cfg = bench.workload()
+    batches = {"cnc": settings["batch"], "mcnc": settings["mcnc_batch"]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kern)
+    tallies = {}
+    t0 = time.perf_counter()
+    out = bench.run(cfg, **settings, device=dev, tallies=tallies)
+    seconds = time.perf_counter() - t0
+    launches = read_launches(kern)
+    peak = torch.cuda.max_memory_allocated()
+    rounds = sum(t["rounds"] for t in tallies.values())
+    medians = {"cnc": out["value"], "mcnc": out["mcnc_frames_per_s"]}
+    arms = {arm: {"batch": batches[arm], "rounds": t["rounds"], "counters": t["counters"],
+                  "ber": [c / (t["rounds"] * batches[arm] * cfg.modem.n_bits_per_ofdm_sym)
+                          for c in t["counters"]],
+                  "median_frames_per_s": medians[arm],
+                  "windows": out["windows" if arm == "cnc" else "mcnc_windows"],
+                  "vs_sync": medians[arm] / sync[arm]["frames_per_s"],
+                  "sync_frames_per_s": sync[arm]["frames_per_s"],
+                  "sync_batch": sync[arm]["batch"]}
+            for arm, t in tallies.items()}
+    line = {"settings": settings, "bench_line": out, "arms": arms, "seconds": seconds,
+            "rounds": rounds, "launches": launches, "launches_per_round": launches / rounds,
+            "launches_by_layout": dict(kern.launches_by_layout),
+            "peak_memory_bytes": peak, "card": card}
+    print(json.dumps({"phase": "bench", **line}), flush=True)
+    check(set(out) == BENCH_KEYS, "bench.py's keys plus device", line, "bench")
+    check(launches == rounds * (N_ITERS + 2), "10 kernel launches a round", line, "bench")
+    for arm, a in arms.items():
+        ber = a["ber"]
+        check(all(0 <= b < 0.5 for b in ber) and ber[0] < ber[1], f"{arm}: sane BERs",
+              line, "bench")
+        check(arm != "mcnc" or ber[-1] <= ber[1], "mcnc: iteration 8 no worse than 0",
+              line, "bench")
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    proc = subprocess.run([sys.executable, "-m", "mimo_ofdm_tpu_torch.bench"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          env={**env, **BENCH_ENV}, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    printed = proc.stdout.strip().splitlines()
+    sub = {"returncode": proc.returncode, "lines": len(printed),
+           "line": json.loads(printed[0]) if len(printed) == 1 else printed[-5:],
+           "stderr_tail": proc.stderr[-2000:] if proc.returncode else ""}
+    print(json.dumps({"phase": "bench", "module": sub, "card": card}), flush=True)
+    check(proc.returncode == 0 and len(printed) == 1 and set(sub["line"]) == BENCH_KEYS,
+          "python -m mimo_ofdm_tpu_torch.bench prints one line with the keys", sub, "bench")
+    line["module"] = sub["line"]
+    return {"bench": line}
+
+
+def bench_shapes(fp, ofdm, dev, settings: dict, card: str = "") -> dict:
+    """The kernel at the bench's shapes (phase 16's settings): the TX launch
+    on bf16 planes ``[batch * 64, 2048]`` of each arm (the MCNC replica
+    passes too) and the CNC replica pass in the interleaved bf16 layout
+    ``[batch, 2048]``, each against its plain version within 1e-2 relative
+    L2."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    tx = {"bench_tx": settings["batch"]}
+    if settings["mcnc_batch"] not in (None, settings["batch"]):
+        tx["bench_mcnc_tx"] = settings["mcnc_batch"]
+    out = {}
+    for name, b in tx.items():
+        out[name] = planes_timing(fp, ofdm, dev, g, name, b * 64, torch.bfloat16, card)
+        check(out[name]["rel_err"] <= 1e-2, f"kernel at {name}", out[name], "bench")
+    out["bench_cnc_replica"] = layout_timing(fp, ofdm, dev, g, "bench_cnc_replica",
+                                             settings["batch"], 4096, "sc", "bfloat16", card)
+    return out
+
+
+def planes_timing(fp, ofdm, dev, g, name: str, rows: int, dtype, card: str = "",
+                  n_fft: int = 4096, n_sc: int = 2048) -> dict:
+    """The kernel on ``sc`` planes of ``dtype`` at ``[rows, n_sc]``, softlim
+    at sat 0.5: CUDA events, graph replay, without the PA, its plain
+    version, :func:`clip_chain` and the clip-free torch.fft chain, the
+    bound, and its error against the plain version (relative L2 and
+    largest)."""
+    kern = fp.fused_ifft_pa_fft
+    xr = torch.randn(rows, n_sc, generator=g, device=dev).to(dtype)
+    xi = torch.randn(rows, n_sc, generator=g, device=dev).to(dtype)
+    sat = torch.full((rows,), 0.5, device=dev)
+    coeff = torch.zeros(rows, device=dev)
+    kw = dict(pa_model="softlim", n_fft=n_fft, mode="sc")
+    ms = time_ms(lambda: kern(xr, xi, sat, coeff, **kw))
+    dev_ms = graph_ms(lambda: kern(xr, xi, sat, coeff, **kw))
+    # the same launch with the PA switched off: what the PA costs in it
+    no_pa_ms = time_ms(lambda: kern(xr, xi, sat, coeff, **{**kw, "pa_model": "none"}))
+    plain_ms = time_ms(lambda: fp.fused_ifft_pa_fft_plain(xr, xi, sat, coeff, **kw))
+    full = ofdm.map_subcarriers(torch.complex(xr.float(), xi.float()), n_fft)
+    lib_ms = time_ms(lambda: clip_chain(full, sat))
+    noclip_ms = time_ms(lambda: torch.fft.fft(torch.fft.ifft(full, norm="ortho"),
+                                              norm="ortho"))
+    kr, ki = kern(xr, xi, sat, coeff, **kw)
+    pr, pi = fp.fused_ifft_pa_fft_plain(xr, xi, sat, coeff, **kw)
+    torch.cuda.synchronize()
+    got, ref = torch.complex(kr.float(), ki.float()), torch.complex(pr.float(), pi.float())
+    n_bytes = rows * n_sc * 2 * xr.element_size() * 2 + rows * 8
+    n_ops = rows * fp.flops_per_row(n_fft, "sc")
+    bytes_ms, ops_ms = n_bytes / H100_BYTES_PER_S * 1e3, n_ops / H100_F32_FLOPS * 1e3
+    line = {"rows": rows, "mode": "sc", "ms": ms, "graph_ms": dev_ms,
+            "layout": "planes_bf16" if dtype == torch.bfloat16 else "planes_f32",
+            "ms_without_pa": no_pa_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_noclip_ms": noclip_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_share": max(bytes_ms, ops_ms) / ms,
+            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+            "bytes": n_bytes, "flops": n_ops, "ns_per_row": ms * 1e6 / rows,
+            "rel_err": rel_err(got, ref), "max_abs_err": float((got - ref).abs().max()),
+            "card": card}
+    print(json.dumps({"phase": "timing", "shape": name, **line}), flush=True)
+    return line
+
+
 def timing(fp, ofdm, dev, batch: int, card: str = "", n_fft: int = 4096,
            n_sc: int = 2048) -> dict:
     """Phase 6: kernel, plain and torch.fft chain (with and without the
     clip) at the main path's shapes on planes; then the interleaved bf16
     layout at the TX shape (the MU link's TX) and at an MCNC-MU replica
     pass (:func:`layout_timing`)."""
-    kern = fp.fused_ifft_pa_fft
     g = torch.Generator(device=dev).manual_seed(1)
     out = {}
     for name, rows, dtype in (("tx", batch * 64, torch.bfloat16),
                               ("cnc_replica", batch, torch.bfloat16),
                               ("tx_f32", batch * 64, torch.float32),
                               ("cnc_replica_f32", batch, torch.float32)):
-        xr = torch.randn(rows, n_sc, generator=g, device=dev).to(dtype)
-        xi = torch.randn(rows, n_sc, generator=g, device=dev).to(dtype)
-        sat = torch.full((rows,), 0.5, device=dev)
-        coeff = torch.zeros(rows, device=dev)
-        kw = dict(pa_model="softlim", n_fft=n_fft, mode="sc")
-        ms = time_ms(lambda: kern(xr, xi, sat, coeff, **kw))
-        dev_ms = graph_ms(lambda: kern(xr, xi, sat, coeff, **kw))
-        # the same launch with the PA switched off: what the PA costs in it
-        no_pa_ms = time_ms(lambda: kern(xr, xi, sat, coeff, **{**kw, "pa_model": "none"}))
-        plain_ms = time_ms(lambda: fp.fused_ifft_pa_fft_plain(xr, xi, sat, coeff, **kw))
-        full = ofdm.map_subcarriers(torch.complex(xr.float(), xi.float()), n_fft)
-        lib_ms = time_ms(lambda: clip_chain(full, sat))
-        noclip_ms = time_ms(lambda: torch.fft.fft(torch.fft.ifft(full, norm="ortho"),
-                                                  norm="ortho"))
-        kr, ki = kern(xr, xi, sat, coeff, **kw)
-        pr, pi = fp.fused_ifft_pa_fft_plain(xr, xi, sat, coeff, **kw)
-        torch.cuda.synchronize()
-        diff = torch.complex(kr.float(), ki.float()) - torch.complex(pr.float(), pi.float())
-        n_bytes = rows * n_sc * 2 * xr.element_size() * 2 + rows * 8
-        n_ops = rows * fp.flops_per_row(n_fft, "sc")
-        bytes_ms, ops_ms = n_bytes / H100_BYTES_PER_S * 1e3, n_ops / H100_F32_FLOPS * 1e3
-        out[name] = {"rows": rows, "mode": "sc", "ms": ms, "graph_ms": dev_ms,
-                     "layout": "planes_bf16" if dtype == torch.bfloat16 else "planes_f32",
-                     "ms_without_pa": no_pa_ms, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "library_noclip_ms": noclip_ms,
-                     "bound_ms": max(bytes_ms, ops_ms),
-                     "bound_share": max(bytes_ms, ops_ms) / ms,
-                     "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-                     "bytes": n_bytes, "flops": n_ops, "ns_per_row": ms * 1e6 / rows,
-                     "max_abs_err": float(diff.abs().max()), "card": card}
-        print(json.dumps({"phase": "timing", "shape": name, **out[name]}), flush=True)
+        out[name] = planes_timing(fp, ofdm, dev, g, name, rows, dtype, card, n_fft, n_sc)
     for shape in MAIN_SHAPES[:2]:
         out[shape[0]] = layout_timing(fp, ofdm, dev, g, *shape, card=card)
     return out
@@ -2008,11 +2120,14 @@ def kernels_line(paths: dict, times: dict, analysis_times: dict, smi: str) -> di
     keep = ("rows", "mode", "ms", "graph_ms", "plain_ms", "library_ms", "library_noclip_ms",
             "bound_ms", "bound_by", "bound_share", "max_abs_err")
     shapes = {**times, **analysis_times}
-    # each layout's row: its times at the shape where the paths launch it most
-    rows = (("planes_bf16", "tx", "main-path TX, sc bf16 planes [8192, 2048]"),
+    # each layout's row: its times at the shape where the paths launch it
+    # most; the bench (phase 16) launches the two bf16 layouts most
+    rows = (("planes_bf16", "bench_tx", "bench TX and MCNC replica pass, sc bf16 planes "
+             f"[{shapes['bench_tx']['rows']}, 2048]"),
             ("planes_f32", "scan_sc_f32", "radiation-scan chunk, sc f32 planes [2560, 2048]"),
-            ("interleaved_bf16", "tx_interleaved_bf16",
-             "MU TX, sc complex64 rounded to bf16 [8192, 2048]"),
+            ("interleaved_bf16", "bench_cnc_replica",
+             "bench CNC replica pass, sc complex64 rounded to bf16 "
+             f"[{shapes['bench_cnc_replica']['rows']}, 2048]"),
             ("interleaved_f32", "psd_full_interleaved_f32",
              "PSD transmit and fused_ifft_clip_fft, full complex64 [6400, 4096]"))
     kernels = {"kernels": [{
@@ -2058,6 +2173,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mimo_ofdm_tpu_torch import bench
     from mimo_ofdm_tpu_torch.experiments import ber_sweeps
     from mimo_ofdm_tpu_torch.kernels import fused_pa as fp
     from mimo_ofdm_tpu_torch.models import link, link_ldpc, link_mu
@@ -2102,6 +2218,8 @@ def main() -> int:
     paths.update(scale_out(fp, config, link, link_mu, link_ldpc, ber_sweeps, dev, args.batch,
                            snr_los, snr_coded, smi))
     paths.update(components(fp, config, link, dev, snr_los, smi, args.batch))
+    paths.update(bench_phase(fp, bench, dev, paths, smi))
+    times.update(bench_shapes(fp, ofdm, dev, paths["bench"]["settings"], smi))
     kernels = kernels_line(paths, times, analysis_times, smi)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

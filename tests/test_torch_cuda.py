@@ -393,16 +393,23 @@ def test_mu_frame_kernel_equal_plain(cuda, prec, alg, sep):
     np.testing.assert_array_equal(out[False][1], out[True][1])
 
 
-@pytest.mark.parametrize("kind", ["mu_zf_mcnc_mu", "mu_mrt_cnc", "tdl_3gpp", "gscm"])
+@pytest.mark.parametrize("kind", ["mu_zf_mcnc_mu", "mu_mrt_cnc", "tdl_3gpp", "gscm",
+                                  "rayleigh_cnc", "rayleigh_mcnc"])
 def test_rounds_never_wait_for_the_device(cuda, kind):
     """After a warm-up round (kernel build, constant tables), a round of the
-    multi-user link or of the TDL/GSCM complex64 frame makes no call that
-    synchronizes with the device."""
+    multi-user link, of the TDL/GSCM complex64 frame or of the bench's
+    Rayleigh frame on bf16 planes (full width, both arms) makes no call
+    that synchronizes with the device."""
+    from mimo_ofdm_tpu_torch import bench
     from mimo_ofdm_tpu_torch.models import link_mu
     if kind.startswith("mu_"):
         _, prec, alg = kind.split("_", 2)
         round_fn = link_mu.make_mu_round_fn(_mu_cfg(prec, alg, "bfloat16"), 2, 4,
                                             device=cuda)
+    elif kind.startswith("rayleigh_"):
+        cfg = bench.arm_config(bench.workload(), kind.split("_")[1])
+        assert cfg.channel_storage == cfg.mxu_fft_storage == "bfloat16"
+        round_fn = link.make_round_fn(cfg, bench.N_ITERS, 4, device=cuda)
     else:
         cfg = config.LinkConfig(modem=config.ModemConfig(n_fft=1024, n_sub_carr=512),
                                 array=config.ArrayConfig(n_elements=8),
@@ -416,6 +423,30 @@ def test_rounds_never_wait_for_the_device(cuda, kind):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert out.dtype == torch.int32
+
+
+def test_bench_on_the_card(cuda, tmp_path, monkeypatch):
+    """The bench function on the card at a small shape, three rounds in
+    flight: bench.py's keys plus the card's name, positive windows, 10
+    kernel launches a round on each arm and sane counters."""
+    from mimo_ofdm_tpu_torch import bench
+    monkeypatch.setattr(bench.baseline_cpu, "measure_baseline_frames_per_s",
+                        lambda cfg, n_iters: 1.0)
+    cfg = bench.workload().replace(modem=config.ModemConfig(n_fft=1024, n_sub_carr=512),
+                                   array=config.ArrayConfig(n_elements=8))
+    tallies = {}
+    before = KERNEL.launches
+    out = bench.run(cfg, 4, 4, n_windows=2, window_s=0.2, depth=3, device=cuda,
+                    baseline_path=tmp_path / "baseline.json", tallies=tallies)
+    assert set(out) == {"metric", "value", "unit", "vs_baseline", "windows",
+                        "mcnc_frames_per_s", "mcnc_windows", "device"}
+    assert torch.cuda.get_device_name(cuda) in out["device"]
+    assert all(w > 0 for w in out["windows"] + out["mcnc_windows"])
+    rounds = sum(t["rounds"] for t in tallies.values())
+    assert KERNEL.launches - before == rounds * (bench.N_ITERS + 2)
+    for t in tallies.values():
+        clean, *iters = t["counters"]
+        assert 0 <= clean < iters[0] < 0.5 * t["rounds"] * 4 * cfg.modem.n_bits_per_ofdm_sym
 
 
 # --- the coded link ----------------------------------------------------------
