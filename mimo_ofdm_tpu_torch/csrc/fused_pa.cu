@@ -74,10 +74,19 @@
 //     contiguous run per register); no hardware sine approximations, since
 //     the f32 mode is held to 1e-5 against an exact transform.
 //
+// The two bf16 layouts have a design of their own, on the tensor cores
+// (fused_ifft_pa_fft_tc_kernel below): the JAX chain's bf16 contract, which
+// the TPU runs on its matrix unit (mimo_ofdm_tpu/ops/mxu_fft.py:375-384),
+// run here as bf16 matrix products with f32 accumulation. The f32 layouts
+// keep the CUDA-core kernel above, since bf16 operands would break their
+// 1e-5 tolerance.
+//
 // Later work (not here): fusing the precode and antenna combine around the
 // chain, and pruning the passes to the occupied bins.
 
 #include <atomic>
+#include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -456,22 +465,478 @@ fused_ifft_pa_fft_kernel(const typename IO::Elem* __restrict__ xr,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 layouts on the tensor cores.
+//
+// What bounds the CUDA-core kernel above in bf16 is its instructions: at
+// [32768, 2048] (sc, bf16 planes) it takes about 8,000 cycles of an SM a
+// row against 1,300 of f32 FMA slots, most of them the butterflies' adds,
+// the twiddles and the exchanges. Here each radix-16 pass is bf16 products
+// on the tensor cores, mma.sync m16n8k16 with f32 accumulation, which is
+// the JAX chain's bf16 contract (bf16 DFT tables, single-pass products,
+// f32 sums) on this card's matrix unit:
+//   * A row of N = 16 * 16 * R points is R tiles of 16 x 16 points, and
+//     each pass is one product a tile: 16 columns (the tile's rows, the A
+//     operand) of 16 points times a DFT-16 matrix (B, held in registers
+//     for the whole kernel). The passes are those of the CUDA-core kernel:
+//     radix 16 over the bins t + N/16 j, radix 16 over t's top digit, then
+//     radix R, here as a block-diagonal 16 x 16 matrix of DFT-Rs (R < 16)
+//     so that every pass is one product shape.
+//   * The complex product is one real product with K = 32, [Re | Im] of
+//     the input against [[C, +-S], [-+S, C]]: 8 mma a tile, no Karatsuba
+//     combines, whose every sum would be one more bf16 rounding. About 128
+//     flops a point a pass: 3.1 MFLOP a 4096-point row, 0.10 ms for 32,768
+//     rows at 989 TFLOP/s dense bf16, under the 0.16 ms of their bytes.
+//   * Rounding to bf16 only where an operand of a product needs it: each
+//     pass's f32 accumulators take their twiddle (and on pass 1 the ortho
+//     1/sqrt(N), folded into the table), or the PA, in f32 on the CUDA
+//     cores, and are rounded once, as the next pass's operand.
+//   * The accumulator layout of m16n8k16 over two n-tiles is its A layout,
+//     so the PA between the last IFFT pass and the first FFT pass (the same
+//     columns, transposed) needs no exchange: the permutation cancellation
+//     again. Between the other passes a tile goes through shared memory as
+//     bf16 planes in 16-byte chunks of 8 points: stmatrix from the
+//     accumulators, ldmatrix (.trans on one side) into the next operand,
+//     4 instructions a tile each way. The chunk index u is swizzled as
+//     u ^ (xor of u's 3-bit digits above the lowest) & 7: every 8x8 matrix
+//     of either side changes exactly three consecutive bits of u, which then
+//     land on 8 distinct 16-byte bank groups (kernels/fused_pa.py::
+//     tensor_schedule holds the same addresses; the CPU tests count them).
+//   * A warp holds 2 tiles, a block 16 (16 / R rows); two buffers of 16 KB
+//     alternate, one barrier an exchange (__syncwarp where a row's tiles
+//     are one warp's, R <= 2).
+//   * Loads and stores go between device memory and the operand or
+//     accumulator registers directly (a warp touches 4 runs of 8
+//     consecutive bins per register), with the sc maps and the L2 prefetch
+//     of the kernel above.
+//   * Twiddles and the DFT matrices' B fragments come from one host-built
+//     table (kernels/fused_pa.py::tensor_kernel_table) laid out in the
+//     order a warp's lanes read it, 256 contiguous bytes a load; a table
+//     in natural order cost 8-32 sectors a load. The soft limiter's gain
+//     is sqrt(sat) * rsqrt(pwr), since its output is rounded to bf16 next.
+// Where it stands (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): about
+// 0.80 ms at [32768, 2048], 0.20 of the bound, 17% under the CUDA-core
+// kernel. The tensor cores take about an eighth of that; the rest is issue
+// at a low IPC with 16 warps an SM (123-128 registers), through the chain
+// of loads, five barrier-separated phases and stores: clock64 stamps put
+// a third of a block's time in its loads, a fifth in its stores.
+namespace tc {
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kTiles = 2;                          // 16 x 16 tiles a warp holds
+constexpr int kBlockTiles = kWarps * kTiles;       // 4096 points a block
+constexpr int kBufBytes = kBlockTiles * 256 * 4;   // one exchange buffer, bf16 re and im
+constexpr int kSmemBytes = 2 * kBufBytes;
+
+// A tile as the A operand: re and im as bf16x2 registers a0..a3 (row g +
+// 8 (i & 1), points 2q + 8 (i >> 1) and one on), g = lane / 4, q = lane % 4.
+struct Frag {
+  uint32_t re[4], im[4];
+};
+
+// A tile of f32 accumulators: [n half h][c register e] at row g + 8 (e >> 1),
+// point 8 h + 2 q + (e & 1).
+struct Acc {
+  float re[2][4], im[2][4];
+};
+
+// B fragments of a 16 x 16 DFT matrix C + i s S: cos, sin and -sin parts,
+// [n half][register]; the lane holds rows 2q, 2q+1 (register 0), 2q+8,
+// 2q+9 (register 1) of column 8 h + g.
+struct Mat {
+  uint32_t c[2][2], s[2][2], ns[2][2];
+};
+
+// lo into the low half, hi into the high half, each rounded to bf16
+// (nearest even, as torch casts)
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A DFT matrix's B fragments from the host-built table
+// (kernels/fused_pa.py::tensor_kernel_table): words [c[h][r], s[h][r]] x
+// lane, each a bf16 pair.
+__device__ __forceinline__ Mat load_matrix(const float2* __restrict__ table) {
+  const uint32_t* __restrict__ w =
+      reinterpret_cast<const uint32_t*>(table) + (threadIdx.x & 31);
+  Mat m;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m.c[h][r] = __ldg(w + (2 * h + r) * 32);
+      m.s[h][r] = __ldg(w + (4 + 2 * h + r) * 32);
+      m.ns[h][r] = m.s[h][r] ^ 0x80008000u;
+    }
+  return m;
+}
+
+// y = x M over a tile, M = C + i S (inverse) or C - i S (forward):
+// Re y = Re x C -+ Im x S, Im y = +-Re x S + Im x C.
+template <bool INV>
+__device__ __forceinline__ void tile_dft(const Frag& x, const Mat& m, Acc& y) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y.re[h][e] = y.im[h][e] = 0.0f;
+    mma(y.re[h], x.re, m.c[h]);
+    mma(y.re[h], x.im, INV ? m.ns[h] : m.s[h]);
+    mma(y.im[h], x.re, INV ? m.s[h] : m.ns[h]);
+    mma(y.im[h], x.im, m.c[h]);
+  }
+}
+
+// The accumulators rounded to bf16 as the next product's A operand.
+__device__ __forceinline__ Frag round_frag(const Acc& y) {
+  Frag f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int h = i >> 1, e = 2 * (i & 1);
+    f.re[i] = pack(y.re[h][e], y.re[h][e + 1]);
+    f.im[i] = pack(y.im[h][e], y.im[h][e + 1]);
+  }
+  return f;
+}
+
+// y times a twiddle a point (CONJ: its conjugate), in f32. `tw` is this
+// tile's section of a lane-ordered table at the lane: the twiddle of Acc
+// element (h, e) lies at tw[32 (4 h + e)], or with TWO_ROWS (the twiddle
+// does not depend on the row) at tw[32 (2 h + e % 2)]. A warp reads 256
+// contiguous bytes a load.
+template <bool CONJ, bool TWO_ROWS = false>
+__device__ __forceinline__ void twiddle(Acc& y, const float2* __restrict__ tw) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 w = __ldg(tw + 32 * (TWO_ROWS ? 2 * h + (e & 1) : 4 * h + e));
+      const float wi = CONJ ? -w.y : w.y;
+      const float yr = y.re[h][e], yi = y.im[h][e];
+      y.re[h][e] = yr * w.x - yi * wi;
+      y.im[h][e] = yr * wi + yi * w.x;
+    }
+}
+
+// The PA on a tile of time samples, with the hardware's approximations
+// (a few ulp), since its output is rounded to bf16 next: the soft
+// limiter's gain as sqrt(sat) * rsqrt(pwr), Rapp's powers as __powf. The
+// IEEE division and powf of pa_gain would put some two thousand
+// instructions of rarely taken paths into every instantiation, which cost
+// the soft limiter 14% of its time in the instruction cache.
+template <int MODEL>
+__device__ __forceinline__ void pa_tile(Acc& y, float sat, float coeff, float rapp_p,
+                                        float rapp_exp) {
+  [[maybe_unused]] const float root = MODEL == kSoftlim ? sqrtf(sat) : 0.0f;
+  [[maybe_unused]] const float inv_sat = MODEL == kRapp ? __fdividef(1.0f, sat) : 0.0f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float re = y.re[h][e], im = y.im[h][e];
+      const float pwr = re * re + im * im;
+      float gain;
+      if constexpr (MODEL == kSoftlim) gain = pwr <= sat ? 1.0f : root * rsqrtf(pwr);
+      else if constexpr (MODEL == kRapp)
+        gain = __powf(1.0f + __powf(pwr * inv_sat, rapp_p), rapp_exp);
+      else gain = 1.0f - coeff * pwr;   // kToi
+      y.re[h][e] = re * gain;
+      y.im[h][e] = im * gain;
+    }
+}
+
+__device__ __forceinline__ void pa(Acc& y, int model, float sat, float coeff, float rapp_p,
+                                   float rapp_exp) {
+  switch (model) {
+    case kSoftlim: pa_tile<kSoftlim>(y, sat, coeff, rapp_p, rapp_exp); break;
+    case kRapp: pa_tile<kRapp>(y, sat, coeff, rapp_p, rapp_exp); break;
+    case kToi: pa_tile<kToi>(y, sat, coeff, rapp_p, rapp_exp); break;
+    default: break;   // kNone
+  }
+}
+
+// 16-byte chunk u of a row's plane -> its place: u's low 3 bits (the bank
+// group) xor its higher 3-bit digits.
+__device__ __forceinline__ uint32_t chunk_swizzle(int u) {
+  const int v = u >> 3;
+  return static_cast<uint32_t>(u ^ ((v ^ (v >> 3) ^ (v >> 6)) & 7));
+}
+
+// One tile to or from an exchange buffer: `re` is the byte address of the
+// row's real plane (the imag plane follows N bf16 on), `u` the chunk this
+// lane addresses. Without TRANS a chunk is 8 consecutive points of one row
+// of the tile; with TRANS, 8 consecutive rows of one point.
+template <bool TRANS, int N>
+__device__ __forceinline__ void to_smem(uint32_t re, int u, const Frag& f) {
+  const uint32_t a = re + 16 * chunk_swizzle(u);
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const uint32_t* r = p ? f.im : f.re;
+    if constexpr (TRANS)
+      asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};"
+                   ::"r"(a + p * 2 * N), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+                   : "memory");
+    else
+      asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};"
+                   ::"r"(a + p * 2 * N), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+                   : "memory");
+  }
+}
+
+template <bool TRANS, int N>
+__device__ __forceinline__ void from_smem(uint32_t re, int u, Frag& f) {
+  const uint32_t a = re + 16 * chunk_swizzle(u);
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    uint32_t* r = p ? f.im : f.re;
+    if constexpr (TRANS)
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+                   : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                   : "r"(a + p * 2 * N) : "memory");
+    else
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                   : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                   : "r"(a + p * 2 * N) : "memory");
+  }
+}
+
+// A row's tiles lie in one warp when R <= kTiles.
+template <int R>
+__device__ __forceinline__ void exchange_sync() {
+  if constexpr (R > kTiles) __syncthreads();
+  else __syncwarp();
+}
+
+template <bool SC, int N>
+__device__ __forceinline__ int io_index(int p, int h) {
+  return !SC ? p : (p >= 1 && p <= h) ? h + p - 1 : (p >= N - h ? p - (N - h) : -1);
+}
+
+}  // namespace tc
+
+// One block: 8 warps of 2 tiles, 16 / R rows. Warp w holds the block's
+// tiles 2w and 2w + 1; tile b is tile tau = b % R of row slot b / R. The
+// passes' tiles and the exchanges' chunks u (before the swizzle), for a
+// lane's row-side coordinates (rm, rh) = (lane % 8 + 8 (lane / 8 % 2),
+// lane / 16) and column-side ones (ck, cm) = (lane % 8 + 8 (lane / 16),
+// lane / 8 % 2), as kernels/fused_pa.py::tensor_schedule holds them:
+//   pass 1  tile tau: columns t = 16 tau + m, points j (bins t + N/16 j)
+//   E1      row side 2 (16 tau + rm) + rh, column side 2 (a + R ck) + cm
+//   pass 2  tile a:   columns (k, a) k = m, points b (t = a + R b)
+//   E2      row side 2 (rm R + a) + rh, column side 2 (16 tau + ck) + cm
+//   pass 3  tile tau: columns c = m, points (s, a), k = 16 tau / R + s
+// The IFFT writes the row sides and reads the column sides, the FFT the
+// other way round.
+template <int LOG2N, bool SC, typename IO>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fused_ifft_pa_fft_tc_kernel(const typename IO::Elem* __restrict__ xr,
+                            const typename IO::Elem* __restrict__ xi,
+                            typename IO::Elem* __restrict__ outr,
+                            typename IO::Elem* __restrict__ outi,
+                            const float* __restrict__ sat,
+                            const float* __restrict__ coeff,
+                            const float2* __restrict__ tw, int rows, int n_io,
+                            int pa_model, float rapp_p, float rapp_exp,
+                            float /* norm: in the twiddle table */, int ahead) {
+  using namespace tc;
+  using T = typename IO::Elem;
+  constexpr bool kTwo = IO::kStreams == 2;
+  constexpr int N = 1 << LOG2N;
+  constexpr int TPR = N / kPoints;       // pass-1 columns of a row
+  constexpr int R = N / 256;             // tiles a row; radix of pass 3 (1: none)
+  constexpr int RPB = kBlockTiles / R;   // rows per block
+  static_assert(LOG2N >= 8 && LOG2N <= 12, "n_fft must be 256 .. 4096");
+
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int rm = (lane & 7) + 8 * ((lane >> 3) & 1), rh = lane >> 4;
+  const int ck = (lane & 7) + 8 * (lane >> 4), cm = (lane >> 3) & 1;
+  const uint32_t smem = static_cast<uint32_t>(__cvta_generic_to_shared(tc_smem));
+  // kernels/fused_pa.py::tensor_kernel_table, lane-ordered: W^(t k) /
+  // sqrt(N) after IFFT pass 1 [tile][8][lane], W^(16 a c) after IFFT pass
+  // 2 [tile][4][lane] and after FFT pass 3 [8][lane], W^(t k) / sqrt(N)
+  // after FFT pass 2 [tile][8][lane], then the B fragments of the DFT-16
+  // and of the block-diagonal DFT-R
+  const float2* __restrict__ tw1 = tw + lane;
+  const float2* __restrict__ tw2 = tw1 + 256 * R;
+  const float2* __restrict__ tw3 = tw2 + 128 * R;
+  const float2* __restrict__ tw4 = tw3 + 256;
+  const float2* __restrict__ mats = tw + 640 * R + 256;
+  const int h = n_io >> 1;
+
+  int tau[kTiles];
+  long long row[kTiles];
+  bool live[kTiles];
+  uint32_t buf0[kTiles], buf1[kTiles];   // the row's real plane in each buffer
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    const int b = kTiles * warp + i;
+    tau[i] = b % R;
+    row[i] = static_cast<long long>(blockIdx.x) * RPB + b / R;
+    live[i] = row[i] < rows;
+    buf0[i] = smem + (b / R) * 4 * N;
+    buf1[i] = buf0[i] + kBufBytes;
+  }
+
+  // the rows of the block `ahead` blocks on into L2, as the kernel above
+  const long long next = (static_cast<long long>(blockIdx.x) + ahead) * RPB;
+  if (next < rows) {
+    const size_t bytes = static_cast<size_t>(min(static_cast<long long>(RPB), rows - next)) * n_io * sizeof(T);
+    const char* nr = reinterpret_cast<const char*>(xr + next * n_io);
+    [[maybe_unused]] const char* ni =
+        kTwo ? reinterpret_cast<const char*>(xi + next * n_io) : nullptr;
+    for (size_t b = threadIdx.x * 128; b < bytes; b += kThreads * 128) {
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(nr + b));
+      if constexpr (kTwo) asm volatile("prefetch.global.L2 [%0];" ::"l"(ni + b));
+    }
+  }
+
+  const Mat f16 = load_matrix(mats);
+  Frag x[kTiles];
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    const size_t off = live[i] ? static_cast<size_t>(row[i]) * n_io : 0;
+    const T* __restrict__ rr = xr + off;
+    const T* __restrict__ ri = kTwo ? xi + off : nullptr;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float2 v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int p = 16 * tau[i] + g + 8 * (r & 1) + TPR * (2 * q + 8 * (r >> 1) + e);
+        const int src = io_index<SC, N>(p, h);
+        v[e] = live[i] && src >= 0 ? IO::load(rr, ri, src) : make_float2(0.0f, 0.0f);
+      }
+      x[i].re[r] = pack(v[0].x, v[1].x);
+      x[i].im[r] = pack(v[0].y, v[1].y);
+    }
+  }
+
+  // IFFT pass 1, twiddle conj(W^(t k)) / sqrt(N), exchange 1
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    Acc y;
+    tile_dft<true>(x[i], f16, y);
+    twiddle<true>(y, tw1 + 256 * tau[i]);
+    to_smem<false, N>(buf0[i], 2 * (16 * tau[i] + rm) + rh, round_frag(y));
+  }
+  exchange_sync<R>();
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) from_smem<true, N>(buf0[i], 2 * (tau[i] + R * ck) + cm, x[i]);
+
+  // IFFT pass 2; with a third pass, twiddle conj(W^(16 a c)) and exchange 2
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    Acc y;
+    tile_dft<true>(x[i], f16, y);
+    if constexpr (R > 1) {
+      const int a = tau[i];
+      twiddle<true, true>(y, tw2 + 128 * a);
+      to_smem<false, N>(buf1[i], 2 * (rm * R + a) + rh, round_frag(y));
+    } else {   // the time samples: PA
+      pa(y, pa_model, live[i] ? sat[row[i]] : 1.0f, live[i] ? coeff[row[i]] : 0.0f, rapp_p,
+         rapp_exp);
+      x[i] = round_frag(y);
+    }
+  }
+
+  if constexpr (R > 1) {
+    const Mat fr = R == 16 ? f16 : load_matrix(mats + 128);
+    exchange_sync<R>();
+    // IFFT pass 3, PA, FFT pass 3 (its transpose), twiddle W^(16 a c),
+    // exchange 2 back
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i) {
+      const int u = 2 * (16 * tau[i] + ck) + cm;
+      from_smem<true, N>(buf1[i], u, x[i]);
+      Acc y;
+      tile_dft<true>(x[i], fr, y);
+      pa(y, pa_model, live[i] ? sat[row[i]] : 1.0f, live[i] ? coeff[row[i]] : 0.0f, rapp_p,
+         rapp_exp);
+      tile_dft<false>(round_frag(y), fr, y);
+      twiddle<false>(y, tw3);
+      to_smem<true, N>(buf0[i], u, round_frag(y));
+    }
+    exchange_sync<R>();
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i) from_smem<false, N>(buf0[i], 2 * (rm * R + tau[i]) + rh, x[i]);
+  }
+
+  // FFT pass 2, twiddle W^(t k) / sqrt(N), exchange 1 back
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    Acc y;
+    tile_dft<false>(x[i], f16, y);
+    twiddle<false>(y, tw4 + 256 * tau[i]);
+    to_smem<true, N>(buf1[i], 2 * (tau[i] + R * ck) + cm, round_frag(y));
+  }
+  exchange_sync<R>();
+
+  // FFT pass 1 and the store
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    from_smem<false, N>(buf1[i], 2 * (16 * tau[i] + rm) + rh, x[i]);
+    Acc y;
+    tile_dft<false>(x[i], f16, y);
+    if (!live[i]) continue;
+    const size_t off = static_cast<size_t>(row[i]) * n_io;
+    T* __restrict__ wr = outr + off;
+    T* __restrict__ wi = kTwo ? outi + off : nullptr;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = 16 * tau[i] + g + 8 * (e >> 1) + TPR * (8 * hh + 2 * q + (e & 1));
+        const int dst = io_index<SC, N>(p, h);
+        if (dst >= 0) IO::store(wr, wi, dst, make_float2(y.re[hh][e], y.im[hh][e]));
+      }
+  }
+}
+
+// The bf16 layouts run the tensor-core kernel, the f32 ones the CUDA-core one.
+template <typename IO> struct TensorCores : std::false_type {};
+template <> struct TensorCores<Planes<__nv_bfloat16>> : std::true_type {};
+template <> struct TensorCores<Interleaved<true>> : std::true_type {};
+
+template <int LOG2N, bool SC, typename IO>
+struct Instance {
+  static constexpr bool kTensor = TensorCores<IO>::value;
+  static constexpr int kSmem = kTensor ? tc::kSmemBytes : kSmemBytes;
+  // rows a block: 16 points a thread, or 256 a tile
+  static constexpr int kRows = (kTensor ? tc::kBlockTiles * 256 : kThreads * kPoints) >> LOG2N;
+  static auto kernel() {
+    if constexpr (kTensor) return fused_ifft_pa_fft_tc_kernel<LOG2N, SC, IO>;
+    else return fused_ifft_pa_fft_kernel<LOG2N, SC, IO>;
+  }
+};
+
 // Sets one instantiation up on the current device, once per device (the
-// calls cost microseconds of host time): lets it take kSmemBytes of dynamic
-// shared memory, and writes how many of its blocks the card holds at once.
+// calls cost microseconds of host time): lets it take its dynamic shared
+// memory, and writes how many of its blocks the card holds at once.
 template <int LOG2N, bool SC, typename IO>
 int setup(int* resident) {
+  using I = Instance<LOG2N, SC, IO>;
   static std::atomic<int> cache[64];   // per device; 0 until set up
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   *resident = cache[dev & 63].load(std::memory_order_relaxed);
   if (*resident) return 0;
-  auto kern = fused_ifft_pa_fft_kernel<LOG2N, SC, IO>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  auto kern = I::kernel();
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, I::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, kSmemBytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, I::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -494,9 +959,10 @@ struct LaunchArgs {
     using T = typename IO::Elem;
     int resident = 0;
     if (const int err = setup<LOG2N, SC, IO>(&resident)) return err;
-    constexpr int rpb = kThreads / ((1 << LOG2N) / kPoints);
-    const int blocks = (rows + rpb - 1) / rpb;
-    fused_ifft_pa_fft_kernel<LOG2N, SC, IO><<<blocks, kThreads, kSmemBytes, stream>>>(
+    using I = Instance<LOG2N, SC, IO>;
+    const int blocks = (rows + I::kRows - 1) / I::kRows;
+    const auto kern = I::kernel();
+    kern<<<blocks, kThreads, I::kSmem, stream>>>(
         static_cast<const T*>(xr), static_cast<const T*>(xi),
         static_cast<T*>(outr), static_cast<T*>(outi), sat, coeff, tw, rows, n_io,
         pa_model, rapp_p, rapp_exp, norm, resident);
@@ -505,26 +971,28 @@ struct LaunchArgs {
 };
 
 // registers, local bytes (spills and stack), static and dynamic shared
-// memory, resident blocks per SM
+// memory, resident blocks per SM, 1 for the tensor-core kernel
 struct AttributesArgs {
   int* out;
 
   template <int LOG2N, bool SC, typename IO>
   int run() const {
-    auto kern = fused_ifft_pa_fft_kernel<LOG2N, SC, IO>;
+    using I = Instance<LOG2N, SC, IO>;
+    auto kern = I::kernel();
     int resident = 0;
     if (const int e = setup<LOG2N, SC, IO>(&resident)) return e;
     cudaFuncAttributes fa;
     cudaError_t err = cudaFuncGetAttributes(&fa, kern);
     if (err != cudaSuccess) return static_cast<int>(err);
     int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kThreads, kSmemBytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kThreads, I::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     out[0] = fa.numRegs;
     out[1] = static_cast<int>(fa.localSizeBytes);
     out[2] = static_cast<int>(fa.sharedSizeBytes);
-    out[3] = kSmemBytes;
+    out[3] = I::kSmem;
     out[4] = blocks;
+    out[5] = I::kTensor;
     return 0;
   }
 };
@@ -546,7 +1014,8 @@ int by_mode(const Op& op, int log2n, int sc_mode) {
   return sc_mode ? by_size<true, IO>(op, log2n) : by_size<false, IO>(op, log2n);
 }
 
-// 5 sizes x 2 modes x 4 layouts: 40 instantiations
+// 5 sizes x 2 modes x 4 layouts: 40 instantiations, the 20 of the bf16
+// layouts on the tensor cores
 template <typename Op>
 int dispatch(const Op& op, int log2n, int sc_mode, int bf16, int interleaved) {
   if (interleaved)
@@ -562,7 +1031,8 @@ int dispatch(const Op& op, int log2n, int sc_mode, int bf16, int interleaved) {
 // tensors: real and imag planes (float or bf16 by `bf16`), or with
 // `interleaved` one complex64 array a side in xr/outr (xi, outi null), its
 // halves rounded to bf16 on load and store when `bf16` is set. `tw` is
-// kernels/fused_pa.py::twiddle_table(n_fft) on the device; `stream` is the
+// kernels/fused_pa.py::twiddle_table(n_fft) on the device for the f32
+// layouts, tensor_kernel_table(n_fft) for the bf16 ones; `stream` is the
 // cudaStream_t of the caller's current stream. Returns cudaGetLastError()
 // after the launch (0 on success).
 extern "C" int fused_ifft_pa_fft_launch(const void* xr, const void* xi,
@@ -580,9 +1050,10 @@ extern "C" int fused_ifft_pa_fft_launch(const void* xr, const void* xi,
   return dispatch(args, log2n, sc_mode, bf16, interleaved);
 }
 
-// Resources of one instantiation, written to out[0..4]: registers a thread,
+// Resources of one instantiation, written to out[0..5]: registers a thread,
 // local memory bytes a thread, static and dynamic shared memory bytes a
-// block, resident blocks per SM. Returns a CUDA error code (0 on success).
+// block, resident blocks per SM, and 1 if it runs on the tensor cores.
+// Returns a CUDA error code (0 on success).
 extern "C" int fused_ifft_pa_fft_attributes(int log2n, int sc_mode, int bf16,
                                             int interleaved, int* out) {
   return dispatch(AttributesArgs{out}, log2n, sc_mode, bf16, interleaved);

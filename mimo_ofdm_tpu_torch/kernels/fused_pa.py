@@ -13,8 +13,11 @@ coefficient per row, and returns planes of the same shape and dtype:
   bins in ``[neg | pos]`` order, the contract of
   ``mimo_ofdm_tpu/ops/mxu_fft.py::fused_sc_ifft_pa_fft_planar_io``.
 
-Both transforms are ortho-normalized and run in float32; bf16 planes are
-converted at load and store only.
+Both transforms are ortho-normalized. The float32 layouts run them in
+float32 (CUDA cores). The bf16 layouts run JAX's bf16 contract
+(``mxu_fft.py:375-384``) on the tensor cores: every DFT pass is a bf16
+matrix product with float32 accumulation, and its operand is rounded to bf16
+once, after the twiddle (or the PA) in float32.
 
 :func:`fused_ifft_pa_fft_complex` is the same function on interleaved
 complex64 ``[..., n_io]``, in and out, which the kernel reads and writes as
@@ -24,10 +27,13 @@ complex64. :func:`fused_ifft_clip_fft` is its ``full`` mode at float32.
 
 For a CUDA tensor the wrappers launch the kernel (built with ``nvcc`` at
 first use into ``mimo_ofdm_tpu_torch/_build/`` and loaded with ``ctypes``)
-or raise. For a CPU tensor they run :func:`fused_ifft_pa_fft_plain`. Both
-count kernel launches in ``fused_ifft_pa_fft.launches``, and by I/O layout
+or raise. For a CPU tensor they run the layout's plain version:
+:func:`fused_ifft_pa_fft_plain` (exact float32 transforms) for the float32
+layouts, :func:`fused_ifft_pa_fft_bf16` (the tensor-core passes, their
+bf16 rounding points and float32 sums) for the bf16 ones. Both count
+kernel launches in ``fused_ifft_pa_fft.launches``, and by I/O layout
 (:data:`LAYOUTS`) in ``fused_ifft_pa_fft.launches_by_layout``; setting
-``fused_ifft_pa_fft.force_plain = True`` runs the plain version on CUDA
+``fused_ifft_pa_fft.force_plain = True`` runs the plain versions on CUDA
 tensors too, for comparing the two inside a whole frame (tests and
 ``chip_smoke.py`` only).
 
@@ -36,6 +42,9 @@ schedule (the radix-16 passes, the twiddle table, the shared-memory
 exchanges with their swizzled addresses, the PA on the digit-reversed
 samples). It is for the CPU tests only, which debug the kernel's index
 and twiddle arithmetic with it; no entry point calls it.
+:func:`tensor_schedule` gives the tensor-core kernel's exchange chunks for
+the same tests; :func:`fused_ifft_pa_fft_bf16` runs that kernel's passes
+and roundings with its exchanges as plain transposes.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ import functools
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -137,14 +147,19 @@ def _nvcc() -> str:
                        "is built from csrc/fused_pa.cu at first use")
 
 
+def _library_path() -> tuple[str, Path]:
+    """The source version's digest and the library built from it."""
+    src = SOURCE.read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return digest, BUILD_DIR / f"libfused_pa_{digest}.so"
+
+
 @functools.lru_cache(maxsize=None)
 def build_library() -> tuple[ctypes.CDLL, str]:
     """Compile ``csrc/fused_pa.cu`` for sm_90a (once per source version)
     and load it. Returns the library and ptxas's register/shared-memory
     report."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    so = BUILD_DIR / f"libfused_pa_{digest}.so"
+    digest, so = _library_path()
     report_path = so.with_suffix(".ptxas.txt")
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -172,13 +187,15 @@ def kernel_resources() -> list[dict]:
     """Every instantiation's resources (each size, mode and I/O layout), as
     the runtime reads them from the loaded kernel on the current card:
     registers, local memory (non-zero when ptxas spills), shared memory,
-    resident blocks per SM."""
+    resident blocks per SM, whether it is the tensor-core kernel, and the
+    tensor-core instructions (``HMMA``, ``HGMMA``) in its SASS."""
     lib, _ = build_library()
+    mma = sass_mma_counts()
     rows = []
     for log2n in range(N_FFT_RANGE[0].bit_length() - 1, N_FFT_RANGE[1].bit_length()):
         for mode in MODES:
             for layout, (interleaved, bf16) in LAYOUTS.items():
-                buf = (ctypes.c_int * 5)()
+                buf = (ctypes.c_int * 6)()
                 err = lib.fused_ifft_pa_fft_attributes(
                     log2n, int(mode == "sc"), int(bf16), int(interleaved), buf)
                 if err:
@@ -186,8 +203,36 @@ def kernel_resources() -> list[dict]:
                 rows.append({"n_fft": 1 << log2n, "mode": mode, "layout": layout,
                              "registers": buf[0],
                              "local_bytes": buf[1], "static_smem_bytes": buf[2],
-                             "dynamic_smem_bytes": buf[3], "blocks_per_sm": buf[4]})
+                             "dynamic_smem_bytes": buf[3], "blocks_per_sm": buf[4],
+                             "tensor_cores": bool(buf[5]),
+                             "sass_mma": mma.get((1 << log2n, mode, layout), 0)})
     return rows
+
+
+# a kernel's mangled name: the kernel, <LOG2N, SC, IO>
+_MANGLED = re.compile(r"(fused_ifft_pa_fft(?:_tc)?_kernel)ILi(\d+)ELb([01])E"
+                      r"NS_(?:6PlanesI(f|13__nv_bfloat16)E|11InterleavedILb([01])EE)")
+
+
+def sass_mma_counts() -> dict:
+    """``(n_fft, mode, layout) -> `` the number of tensor-core instructions
+    (``HMMA``, ``HGMMA``) in each instantiation's SASS, from ``cuobjdump
+    -sass`` of the built library (the CUDA toolkit's, beside ``nvcc``)."""
+    _, so = _library_path()
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        m = _MANGLED.search(part.split("\n", 1)[0])
+        if m is None:
+            continue
+        _, log2n, sc, plane, inter = m.groups()
+        layout = (f"planes_{'f32' if plane == 'f' else 'bf16'}" if plane
+                  else f"interleaved_{'bf16' if inter == '1' else 'f32'}")
+        key = (1 << int(log2n), "sc" if sc == "1" else "full", layout)
+        out[key] = len(re.findall(r"\bH(?:G)?MMA\b", part))
+    return out
 
 
 POINTS = 16          # complex points a thread holds in registers
@@ -239,6 +284,26 @@ def schedule(n_fft: int) -> Schedule:
     return Schedule(n_fft, threads, radix, swizzle(e1_w), swizzle(e1_r), e2_w, e2_r)
 
 
+def _twiddles64(n_fft: int, ortho_pass1: bool) -> np.ndarray:
+    """The twiddles in complex128: ``16 * threads`` entries ``W^(t k)`` at
+    ``k * threads + t`` (times ``1 / sqrt(n_fft)`` with ``ortho_pass1``),
+    then ``16 * radix`` entries ``W^(16 a c)`` at ``c * radix + a``, with
+    ``W = exp(-2 pi i / n_fft)``."""
+    s = schedule(n_fft)
+    k = np.arange(POINTS)[:, None]
+    e1 = k * np.arange(s.threads)[None, :]
+    e2 = 16 * k * np.arange(s.radix)[None, :]
+    w1 = np.exp(-2j * np.pi * e1.ravel() / n_fft)
+    if ortho_pass1:
+        w1 = w1 / math.sqrt(n_fft)
+    return np.concatenate([w1, np.exp(-2j * np.pi * e2.ravel() / n_fft)])
+
+
+def _pairs(w: np.ndarray) -> np.ndarray:
+    """Complex values as float32 (re, im) pairs, each rounded once."""
+    return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+
+
 @functools.lru_cache(maxsize=None)
 def twiddle_table(n_fft: int) -> np.ndarray:
     """The kernel's twiddles, computed in float64 and rounded to float32
@@ -246,18 +311,265 @@ def twiddle_table(n_fft: int) -> np.ndarray:
     entries ``W^(t k)`` at ``k * threads + t`` for pass 1, then ``16 *
     radix`` entries ``W^(16 a c)`` at ``c * radix + a`` for pass 2, with
     ``W = exp(-2 pi i / n_fft)``. The IFFT takes the conjugates."""
-    s = schedule(n_fft)
-    k = np.arange(POINTS)[:, None]
-    e1 = k * np.arange(s.threads)[None, :]
-    e2 = 16 * k * np.arange(s.radix)[None, :]
-    w = np.exp(-2j * np.pi * np.concatenate([e1.ravel(), e2.ravel()]) / n_fft)
-    return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+    return _pairs(_twiddles64(n_fft, False))
 
 
 @functools.lru_cache(maxsize=None)
-def _twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
-    """:func:`twiddle_table` on ``device``."""
-    return torch.from_numpy(twiddle_table(n_fft)).to(device)
+def tensor_twiddle_table(n_fft: int) -> np.ndarray:
+    """The bf16 layouts' twiddles: :func:`twiddle_table`'s layout, with the
+    ortho ``1 / sqrt(n_fft)`` folded into the ``W^(t k)`` section (in
+    float64, then rounded), since the tensor-core kernel applies it with
+    that twiddle, in both transforms."""
+    return _pairs(_twiddles64(n_fft, True))
+
+
+@functools.lru_cache(maxsize=None)
+def tensor_kernel_table(n_fft: int) -> np.ndarray:
+    """What the tensor-core kernel reads, ``[640 R + 512, 2]`` float32 (``R
+    = n_fft / 256``): the values of :func:`tensor_twiddle_table` gathered
+    in the order a warp's lanes read them, so that each load is 256
+    contiguous bytes, then the DFT matrices' B fragments. For lane ``l``
+    (``g = l // 4``, ``q = l % 4``) and accumulator element ``(h, e)`` of
+    a tile (row ``g + 8 (e // 2)``, point ``8 h + 2 q + e % 2``), at entry
+    ``[section][reg][lane]``:
+
+    * ``W^(t k) / sqrt(n)`` after IFFT pass 1, ``[tile][4 h + e][l]``:
+      ``t = 16 tile + row``, ``k = point``;
+    * ``W^(16 a c)`` after IFFT pass 2, ``[tile][2 h + e % 2][l]``: ``a =
+      tile``, ``c = point``;
+    * ``W^(16 a c)`` after FFT pass 3, ``[4 h + e][l]``: ``c = row``, ``a =
+      point % R``;
+    * ``W^(t k) / sqrt(n)`` after FFT pass 2, ``[tile][4 h + e][l]``: ``k
+      = row``, ``t = tile + R point``;
+    * the DFT-16's and the block-diagonal DFT-R's B fragments, 128 entries
+      each: 32-bit words ``[c[h][r] | s[h][r]][l]`` (word ``2 h + r``, then
+      ``4 + 2 h + r``), each two bf16 (the low half the even row) of the
+      cos and sin parts of :func:`_tensor_dft`, rows ``2 q + 8 r`` and one
+      on, column ``8 h + g``."""
+    r = n_fft // 256
+    T = n_fft // TILE
+    nat = tensor_twiddle_table(n_fft)
+    tw1, tw2 = nat[:TILE * T], nat[TILE * T:]
+    lane = np.arange(32)
+    g, q = lane // 4, lane % 4
+    reg = np.arange(8)[:, None]
+    h, e = reg // 4, reg % 4
+    row, point = g + 8 * (e // 2), 8 * h + 2 * q + e % 2          # [8, 32]
+    tau = np.arange(r)[:, None, None]
+    s1 = tw1[point * T + TILE * tau + row]                         # [R, 8, 32, 2]
+    reg2 = np.arange(4)[:, None]
+    s2 = tw2[(8 * (reg2 // 2) + 2 * q + reg2 % 2) * r + tau]       # [R, 4, 32, 2]
+    s3 = tw2[row * r + point % r]                                  # [8, 32, 2]
+    s4 = tw1[row * T + tau + r * point]                            # [R, 8, 32, 2]
+    mats = [_b_fragments(16), _b_fragments(max(r, 2))]
+    return np.concatenate([s1.reshape(-1, 2), s2.reshape(-1, 2), s3.reshape(-1, 2),
+                           s4.reshape(-1, 2), *mats]).astype(np.float32)
+
+
+def _b_fragments(radix: int) -> np.ndarray:
+    """The B fragments of :func:`_tensor_dft` ``(radix)`` as the kernel's
+    ``load_matrix`` reads them: ``[8 words, 32 lanes]`` uint32 viewed as
+    ``[128, 2]`` float32."""
+    big = _tensor_dft(radix, True)
+    bits = {"c": big[:TILE, :TILE], "s": big[:TILE, TILE:]}       # inverse: C + i S
+    lane = np.arange(32)
+    g, q = lane // 4, lane % 4
+    words = []
+    for part in ("c", "s"):
+        b = bits[part].to(torch.bfloat16).view(torch.int16).numpy().astype(np.uint32) & 0xFFFF
+        for h in range(2):
+            for rr in range(2):
+                k, n = 2 * q + 8 * rr, 8 * h + g
+                words.append(b[k, n] | (b[k + 1, n] << 16))
+    return np.ascontiguousarray(np.stack(words).astype(np.uint32)).view(np.float32).reshape(-1, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _twiddles(n_fft: int, device: torch.device, tensor: bool = False) -> torch.Tensor:
+    """:func:`twiddle_table` (or, ``tensor``, :func:`tensor_kernel_table`)
+    on ``device``."""
+    table = tensor_kernel_table(n_fft) if tensor else twiddle_table(n_fft)
+    return torch.from_numpy(table).to(device)
+
+
+# --- the bf16 layouts: the tensor-core kernel's schedule and plain version ---
+
+TILE = 16            # a tensor-core tile: 16 columns of 16 points
+
+
+def chunk_swizzle(u):
+    """The tensor-core kernel's exchange swizzle, in 16-byte chunks of 8
+    bf16: the low 3 bits of ``u`` (its bank group) xor every higher 3-bit
+    digit of ``u``. Three consecutive bits of ``u`` then always land on
+    three distinct bits of the bank group."""
+    v = u >> 3
+    return u ^ ((v ^ (v >> 3) ^ (v >> 6)) & 7)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSchedule:
+    """How the tensor-core kernel (the bf16 layouts) splits one
+    ``n_fft``-point row: ``tiles`` tiles of 16 x 16 points (``tiles`` is
+    also the radix of the third pass; 1: two passes), and for each side of
+    its two exchanges the swizzled 16-byte chunk that each lane of a warp
+    addresses with ``stmatrix``/``ldmatrix``, ``[tiles, 32]``: lane ``l``
+    gives row ``l % 8`` of the 8 x 8 matrix ``l // 8``. The row side moves
+    8 consecutive points of one tile row (``e1_rows``: pass 1 writes it in
+    the IFFT, pass 1 reads it in the FFT; ``e2_rows``: pass 2), the column
+    side 8 consecutive rows of one point (``.trans``; ``e1_cols``: pass 2,
+    ``e2_cols``: pass 3). ``e2_*`` is None when ``tiles == 1``."""
+    n_fft: int
+    tiles: int
+    e1_rows: np.ndarray
+    e1_cols: np.ndarray
+    e2_rows: np.ndarray | None
+    e2_cols: np.ndarray | None
+
+
+def _tensor_chunks(n_fft: int):
+    """The kernel's chunk index (before the swizzle) of each exchange side
+    as a function of (tile, index, half): ``rows`` takes a tile row ``m``
+    and the half of its 16 points, ``cols`` a point ``kk`` and the half of
+    the tile's 16 rows."""
+    r = n_fft // 256
+    return {"e1": (lambda tau, m, h: 2 * (16 * tau + m) + h,      # t = 16 tau + m, k
+                   lambda a, kk, mh: 2 * (a + r * kk) + mh),       # t = a + R b, b = kk
+            "e2": (lambda a, m, h: 2 * (m * r + a) + h,            # (k = m, a), c
+                   lambda tau, kk, mh: 2 * (16 * tau + kk) + mh)}  # (k, a) = 16 tau + kk, c
+
+
+@functools.lru_cache(maxsize=None)
+def tensor_schedule(n_fft: int) -> TensorSchedule:
+    """The tensor-core kernel's split of an ``n_fft``-point row
+    (``csrc/fused_pa.cu``, ``fused_ifft_pa_fft_tc_kernel``, computes the
+    same chunks)."""
+    check_shapes(n_fft, n_fft, "full")
+    r = n_fft // 256
+    tau = np.arange(r)[:, None]
+    lane = np.arange(32)[None, :]
+    i, row = lane >> 3, lane & 7
+    chunks = _tensor_chunks(n_fft)
+    tables = {}
+    for name, (rows_fn, cols_fn) in chunks.items():
+        tables[f"{name}_rows"] = chunk_swizzle(rows_fn(tau, row + 8 * (i & 1), i >> 1))
+        tables[f"{name}_cols"] = chunk_swizzle(cols_fn(tau, row + 8 * (i >> 1), i & 1))
+    if r == 1:
+        tables["e2_rows"] = tables["e2_cols"] = None
+    return TensorSchedule(n_fft, r, **tables)
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (nearest even) and widened back to float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _tensor_dft(radix: int, inverse: bool) -> torch.Tensor:
+    """One tensor-core pass as a real ``[32, 32]`` matrix of bf16 values (in
+    float32), the kernel's B operand: rows ``[Re | Im]`` of 16 input
+    points, columns ``[Re | Im]`` of 16 outputs, the DFT-``radix`` matrix
+    ``exp(+-2 pi i a d / radix)`` on each diagonal block (``radix`` 16:
+    the DFT-16), rounded to bf16 from float64."""
+    k = np.arange(TILE)
+    on = (k[:, None] // radix) == (k[None, :] // radix)
+    ang = 2 * np.pi * ((k[:, None] % radix) * (k[None, :] % radix) % radix) / radix
+    c = np.where(on, np.cos(ang), 0.0)
+    s = np.where(on, np.sin(ang), 0.0)
+    c[np.abs(c) < 1e-12] = 0.0              # exact zeros, as the kernel's constants
+    s[np.abs(s) < 1e-12] = 0.0
+    mi = s if inverse else -s
+    big = np.block([[c, mi], [-mi, c]])     # x [Re | Im] -> [Re | Im] of x (C + i mi)
+    return torch.from_numpy(big).to(torch.bfloat16).to(torch.float32)
+
+
+def fused_ifft_pa_fft_bf16(xr, xi, sat, cubic_coeff, *, pa_model: str,
+                           n_fft: int, mode: str = "sc", rapp_p: float = 1.1):
+    """The plain version of the bf16 layouts (the tensor-core kernel's
+    arithmetic) in PyTorch, on any device: the input rounded to bf16; each
+    pass a product of bf16 values with float32 sums (a float32 matmul of
+    bf16-exact operands, :func:`_tensor_dft`); the twiddles
+    (:func:`tensor_twiddle_table`, the ortho scale in them) and the PA in
+    float32 on the sums; each pass's operand rounded to bf16 once, at the
+    exchange before it. Arguments as :func:`fused_ifft_pa_fft_plain`;
+    returns planes of the input's dtype (bf16 planes: the store rounds).
+
+    The passes, for ``n_fft = 256 R`` (``T = 16 R``), each on ``R`` tiles
+    ``[16 rows, 16 points]`` of a row: 1. rows ``t = 16 tau + m``, points
+    ``j`` (bin ``t + T j``), twiddle ``conj W^(t k) / sqrt(n)``; 2. rows
+    ``(k, a)``, points ``b`` (``t = a + R b``), twiddle ``conj W^(16 a
+    c)``; 3. rows ``c``, points ``(s, a)`` of ``16 / R`` columns ``k``, a
+    block-diagonal DFT-``R``; the PA; the FFT the same passes transposed,
+    in reverse. The kernel moves the points between passes through shared
+    memory (:func:`tensor_schedule`); here each exchange is the transpose
+    it amounts to."""
+    check_shapes(n_fft, xr.shape[-1], mode)
+    r, T = n_fft // 256, n_fft // TILE
+    lead, n_io, dtype, device = xr.shape[:-1], xr.shape[-1], xr.dtype, xr.device
+    xr = _bf16(xr.reshape(-1, n_io))
+    xi = _bf16(xi.reshape(-1, n_io))
+    rows = xr.shape[0]
+    tw = torch.from_numpy(tensor_twiddle_table(n_fft)).to(device)
+    tau = torch.arange(r, device=device)[:, None, None]
+    m = torch.arange(TILE, device=device)[None, :, None]
+    n = torch.arange(TILE, device=device)[None, None, :]
+    bins = (TILE * tau + m + T * n).cpu().numpy()            # pass 1's points j = n
+    io = torch.from_numpy(_sc_bins(n_fft, n_io, mode)[bins]).to(device)
+    keep = io >= 0
+    idx = io.clamp(min=0)
+    re = torch.where(keep, xr[:, idx], 0.0)
+    im = torch.where(keep, xi[:, idx], 0.0)
+
+    def product(re, im, radix, inverse):
+        y = torch.cat([re, im], -1) @ _tensor_dft(radix, inverse).to(device)
+        return y[..., :TILE], y[..., TILE:]
+
+    def twiddle(re, im, at, conj):
+        w = tw[torch.broadcast_to(at, (r, TILE, TILE))]
+        wr, wi = w[..., 0], (-w[..., 1] if conj else w[..., 1])
+        return re * wr - im * wi, re * wi + im * wr
+
+    # each exchange rounds to bf16 and moves [rows, tiles, 16, 16] from one
+    # pass's (row, point) to the next's
+    def e1(v):          # (t = 16 tau + m, k) -> (a, k, b), t = a + R b
+        return _bf16(v).reshape(rows, TILE, r, TILE).permute(0, 2, 3, 1)
+
+    def e1_back(v):     # (a, k, b) -> (t, k)
+        return _bf16(v).permute(0, 3, 1, 2).reshape(rows, r, TILE, TILE)
+
+    def e2(v):          # (a, k, c) -> (tau, c, n), 16 tau + n = k R + a
+        v = _bf16(v).transpose(1, 2).reshape(rows, TILE * r, TILE).transpose(1, 2)
+        return v.reshape(rows, TILE, r, TILE).transpose(1, 2)
+
+    def e2_back(v):     # (tau, c, n) -> (a, k, c)
+        v = _bf16(v).transpose(1, 2).reshape(rows, TILE, TILE * r).transpose(1, 2)
+        return v.reshape(rows, TILE, r, TILE).transpose(1, 2)
+
+    at1 = T * n + TILE * tau + m                  # W^(t k) / sqrt(n): k = n, t = 16 tau + m
+    at2 = 16 * T + n * r + tau                    # W^(16 a c): a = tau, c = n
+    at3 = 16 * T + m * r + n % r                  # W^(16 a c): c = m, a = n % R
+    at2f = T * m + tau + r * n                    # W^(t k): k = m, t = tau + R b, b = n
+    # IFFT
+    re, im = twiddle(*product(re, im, TILE, True), at1, True)
+    re, im = product(e1(re), e1(im), TILE, True)
+    if r > 1:
+        re, im = twiddle(re, im, at2, True)
+        re, im = product(e2(re), e2(im), r, True)
+    # PA on the time samples
+    sat = _row_param(sat, lead, device).reshape(-1, 1, 1, 1)
+    coeff = _row_param(cubic_coeff, lead, device).reshape(-1, 1, 1, 1)
+    re, im = apply_pa_planar(re, im, pa_model, sat, rapp_p, coeff)
+    re, im = _bf16(re), _bf16(im)
+    # FFT: the passes transposed, in reverse order
+    if r > 1:
+        re, im = twiddle(*product(re, im, r, False), at3, False)
+        re, im = e2_back(re), e2_back(im)
+    re, im = twiddle(*product(re, im, TILE, False), at2f, False)
+    re, im = product(e1_back(re), e1_back(im), TILE, False)
+    outr = torch.zeros(rows, n_io, dtype=re.dtype, device=device)
+    outi = torch.zeros_like(outr)
+    outr[:, io[keep]] = re[:, keep]
+    outi[:, io[keep]] = im[:, keep]
+    return outr.reshape(*lead, n_io).to(dtype), outi.reshape(*lead, n_io).to(dtype)
 
 
 def _sc_bins(n_fft: int, n_io: int, mode: str) -> np.ndarray:
@@ -354,10 +666,17 @@ def _check_call(pa_model: str, n_fft: int, n_io: int, mode: str, device) -> None
         raise ValueError(f"no kernel for device {device}")
 
 
+def _plain_version(dtype: torch.dtype):
+    """The plain version of the layouts of ``dtype``: the bf16 layouts'
+    tensor-core arithmetic, or the exact float32 transforms."""
+    return fused_ifft_pa_fft_bf16 if dtype == torch.bfloat16 else fused_ifft_pa_fft_plain
+
+
 def _launch(ins, outs, n_io, sat, coeff, pa_model, n_fft, mode, rapp_p, layout):
     """One launch on contiguous CUDA tensors: ``ins``/``outs`` are the real
     and imag planes, or one ``view_as_real`` of complex64 each in the
-    interleaved layouts; counted under ``layout``."""
+    interleaved layouts; counted under ``layout``. The bf16 layouts run the
+    tensor-core kernel, with :func:`tensor_kernel_table`."""
     interleaved, bf16 = LAYOUTS[layout]
     for name, t in (*zip(("xr", "xi"), ins), ("sat", sat), ("cubic_coeff", coeff)):
         if not t.is_contiguous():
@@ -367,7 +686,7 @@ def _launch(ins, outs, n_io, sat, coeff, pa_model, n_fft, mode, rapp_p, layout):
     if interleaved:      # one array a side: no imag plane
         ptrs = [ptrs[0], None, ptrs[1], None]
     device = ins[0].device
-    tw = _twiddles(n_fft, device)
+    tw = _twiddles(n_fft, device, bf16)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.fused_ifft_pa_fft_launch(
         *ptrs, sat.data_ptr(), coeff.data_ptr(), tw.data_ptr(), sat.numel(),
@@ -399,8 +718,8 @@ def fused_ifft_pa_fft(xr: torch.Tensor, xi: torch.Tensor, sat,
     if xr.numel() == 0:                 # no rows: nothing to compute or launch
         return torch.empty_like(xr), torch.empty_like(xi)
     if xr.device.type == "cpu" or fused_ifft_pa_fft.force_plain:
-        return fused_ifft_pa_fft_plain(xr, xi, sat, coeff, pa_model=pa_model,
-                                       n_fft=n_fft, mode=mode, rapp_p=rapp_p)
+        return _plain_version(xr.dtype)(xr, xi, sat, coeff, pa_model=pa_model,
+                                        n_fft=n_fft, mode=mode, rapp_p=rapp_p)
     outr, outi = torch.empty_like(xr), torch.empty_like(xi)
     _launch((xr, xi), (outr, outi), xr.shape[-1], sat, coeff, pa_model, n_fft, mode,
             rapp_p, "planes_bf16" if xr.dtype == torch.bfloat16 else "planes_f32")
@@ -425,8 +744,8 @@ def fused_ifft_pa_fft_complex(x: torch.Tensor, sat, cubic_coeff=0.0, *,
 
     Complex128 raises: cast to bf16 from float64 it rounds once, from
     complex64 twice, so its callers keep the plane route. A CPU tensor (or
-    ``force_plain``) runs the plain version on such planes, bit for bit the
-    plane route's result."""
+    ``force_plain``) runs the storage's plain version on such planes, bit
+    for bit the plane route's result."""
     if x.dtype != torch.complex64:
         raise ValueError(f"x must be complex64, got {x.dtype}")
     st = storage_dtype(storage)
@@ -437,9 +756,9 @@ def fused_ifft_pa_fft_complex(x: torch.Tensor, sat, cubic_coeff=0.0, *,
     if x.numel() == 0:
         return torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if x.device.type == "cpu" or fused_ifft_pa_fft.force_plain:
-        pr, pi = fused_ifft_pa_fft_plain(x.real.to(st), x.imag.to(st), sat, coeff,
-                                         pa_model=pa_model, n_fft=n_fft, mode=mode,
-                                         rapp_p=rapp_p)
+        pr, pi = _plain_version(st)(x.real.to(st), x.imag.to(st), sat, coeff,
+                                    pa_model=pa_model, n_fft=n_fft, mode=mode,
+                                    rapp_p=rapp_p)
         return torch.complex(pr.float(), pi.float())
     # one float2 array: no lazy conjugate or negative, no strides
     x = x.resolve_conj().resolve_neg().contiguous()

@@ -132,9 +132,11 @@ def _i8(a, device):
     return torch.as_tensor(np.array(a, np.int8), device=device)
 
 
-def chan_from_numpy(chan, device="cpu"):
+def chan_from_numpy(chan, device=None):
     """Channel draws of numpy (an array, a NamedTuple of arrays, or None)
-    as float32 tensors on ``device``."""
+    as float32 tensors on ``device`` (``None``: the card, as every entry
+    point; ``"cpu"`` for the CPU)."""
+    device = resolve_device(device)
     if chan is None or isinstance(chan, np.ndarray):
         return _f32(chan, device)
     return type(chan)(*(_f32(a, device) for a in chan))
@@ -173,9 +175,11 @@ def draw_channel(cfg: LinkConfig, batch: int, generator: torch.Generator):
     return None
 
 
-def link_static(cfg: LinkConfig, device="cpu"):
+def link_static(cfg: LinkConfig, device=None):
     """Static geometry/frequency tensors of a config, float32 on
-    ``device``: ``(tx_pos [n_ant, 3], freqs [n_fft], rx_base [3])``."""
+    ``device`` (``None``: the card, as every entry point; ``"cpu"`` for the
+    CPU): ``(tx_pos [n_ant, 3], freqs [n_fft], rx_base [3])``."""
+    device = resolve_device(device)
     tx_pos = geometry.array_positions(
         cfg.array.geometry, cfg.array.n_elements, cfg.center_freq,
         cfg.array.wav_len_spacing, cord_z=cfg.array.cord_z,

@@ -8,8 +8,10 @@ plain PyTorch version). The PA is named by model and per-row parameters
 instead of a closure, since it runs inside the kernel.
 
 ``storage`` is the dtype of the planes on either side of the kernel
-(``"bfloat16"`` or ``"float32"``); the transforms run in float32 either
-way. The complex-ended entry points hand complex64 to the kernel's
+(``"bfloat16"`` or ``"float32"``). At float32 the transforms run in
+float32; at bf16 they run the JAX chain's bf16 contract on the tensor
+cores (each pass a bf16 product with float32 sums, its operand rounded to
+bf16 once). The complex-ended entry points hand complex64 to the kernel's
 interleaved layout as it is, which gives the same bits without the planes
 (complex128 still goes through planes).
 """

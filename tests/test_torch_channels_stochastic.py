@@ -68,7 +68,7 @@ def _matrices(jcfg, jax_fn, port_fn, seed=3):
     with jax.enable_x64(False):
         ref = np.stack([np.asarray(jax_fn(k, tx, r, freqs)) for k, r in zip(keys, RX)])
         draws = pdraws.stack_chan([pdraws.chan_draws(jcfg, k) for k in keys])
-    got = port_fn(link.chan_from_numpy(draws), torch.from_numpy(tx), torch.from_numpy(RX),
+    got = port_fn(link.chan_from_numpy(draws, "cpu"), torch.from_numpy(tx), torch.from_numpy(RX),
                   torch.from_numpy(freqs))
     assert got.dtype == torch.complex64 and got.shape == ref.shape
     return got.numpy(), ref
@@ -145,7 +145,7 @@ def test_gscm_taps_and_matrix_match_jax(scenario):
         ref_h = np.stack([np.asarray(jgscm.gscm_channel(k, tx, r, freqs, scenario=scenario))
                           for k, r in zip(keys, RX)])
         draws = link.chan_from_numpy(pdraws.stack_chan([pdraws.gscm_draws(scenario, k)
-                                                        for k in keys]))
+                                                        for k in keys]), "cpu")
     tv, tt = gscm.gscm_taps(draws, torch.from_numpy(tx), torch.from_numpy(RX),
                             torch.tensor(fc), scenario=scenario)
     ref_v = np.stack([np.asarray(t[0]) for t in taps])

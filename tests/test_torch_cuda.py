@@ -140,6 +140,84 @@ def test_tx_shape(cuda, dtype, tol):
     assert _rel(k, p) < tol
 
 
+# --- the bf16 layouts on the tensor cores --------------------------------------
+
+# relative L2 of the kernel against the bf16 plain version: the same passes
+# and roundings read under 1e-3 on an H100, and the earlier float32-pass
+# arithmetic with bf16 loads and stores reads 4.6e-3 against it
+BF16_PLAIN_TOL = 2e-3
+
+def _bf16_plain(xr, xi, sat, coeff=0.0, **kw):
+    """The bf16 layouts' plain version (the tensor-core arithmetic) on the
+    same CUDA inputs."""
+    rows = xr.shape[:-1]
+    sat_t = torch.broadcast_to(torch.as_tensor(sat, dtype=torch.float32, device=xr.device), rows)
+    coeff_t = torch.broadcast_to(torch.as_tensor(coeff, dtype=torch.float32, device=xr.device),
+                                 rows)
+    pr, pi = fused_pa.fused_ifft_pa_fft_bf16(xr, xi, sat_t, coeff_t, **kw)
+    return torch.complex(pr.float(), pi.float())
+
+
+@pytest.mark.parametrize("rows", [96, 37, 1])
+@pytest.mark.parametrize("mode", ["sc", "full"])
+@pytest.mark.parametrize("n_fft", [256, 512, 1024, 2048, 4096])
+def test_bf16_planes_against_both_plain_versions(cuda, n_fft, mode, rows):
+    """The tensor-core kernel on bf16 planes within 2e-3 relative L2 of the
+    bf16 plain version (the same passes and roundings) and within 1e-2 of
+    the exact plain version, every size, both modes, a ragged last block
+    and one row."""
+    g = torch.Generator(device=cuda).manual_seed(n_fft * 7 + len(mode) + rows)
+    n_io = n_fft // 2 if mode == "sc" else n_fft
+    xr = torch.randn(rows, n_io, generator=g, device=cuda).bfloat16()
+    xi = torch.randn(rows, n_io, generator=g, device=cuda).bfloat16()
+    sat = torch.rand(rows, generator=g, device=cuda) * 2 + 0.2
+    kw = dict(pa_model="softlim", n_fft=n_fft, mode=mode)
+    k, exact = _both(xr, xi, sat, **kw)
+    assert KERNEL.launches_by_layout["planes_bf16"] > 0
+    assert _rel(k, _bf16_plain(xr, xi, sat, **kw)) < BF16_PLAIN_TOL
+    assert _rel(k, exact) < 1e-2
+
+
+@pytest.mark.parametrize("model", ["none", "rapp", "toi"])
+def test_bf16_other_pa_models(cuda, model):
+    g = torch.Generator(device=cuda).manual_seed(31)
+    xr = torch.randn(64, 2048, generator=g, device=cuda).bfloat16()
+    xi = torch.randn(64, 2048, generator=g, device=cuda).bfloat16()
+    sat = torch.rand(64, generator=g, device=cuda) + 0.2
+    coeff = torch.rand(64, generator=g, device=cuda) * 0.05
+    kw = dict(pa_model=model, n_fft=4096, mode="sc")
+    k, exact = _both(xr, xi, sat, coeff, **kw)
+    assert _rel(k, _bf16_plain(xr, xi, sat, coeff, **kw)) < BF16_PLAIN_TOL
+    assert _rel(k, exact) < 1e-2
+
+
+def test_bf16_force_plain_takes_the_bf16_plain_version(cuda):
+    g = torch.Generator(device=cuda).manual_seed(32)
+    xr = torch.randn(16, 512, generator=g, device=cuda).bfloat16()
+    xi = torch.randn(16, 512, generator=g, device=cuda).bfloat16()
+    kw = dict(pa_model="softlim", n_fft=1024, mode="sc")
+    KERNEL.force_plain = True
+    try:
+        before = KERNEL.launches
+        pr, pi = KERNEL(xr, xi, 0.5, **kw)
+        assert KERNEL.launches == before
+    finally:
+        KERNEL.force_plain = False
+    assert torch.equal(torch.complex(pr.float(), pi.float()), _bf16_plain(xr, xi, 0.5, **kw))
+
+
+def test_bf16_instantiations_run_on_the_tensor_cores(cuda):
+    """Every bf16 instantiation is the tensor-core kernel, its SASS holds
+    HMMA, it does not spill and 2 of its blocks fit an SM; no f32 one
+    uses the tensor cores."""
+    for r in fused_pa.kernel_resources():
+        if r["layout"].endswith("bf16"):
+            assert r["tensor_cores"] and r["sass_mma"] > 0, r
+            assert r["local_bytes"] == 0 and r["blocks_per_sm"] >= 2, r
+        else:
+            assert not r["tensor_cores"] and r["sass_mma"] == 0, r
+
+
 def test_rejects_non_contiguous(cuda):
     x = torch.zeros(4, 1024, device=cuda)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
@@ -199,6 +277,10 @@ def test_interleaved_layout_equals_planes(cuda, n_fft, mode, storage, model):
                                   mode=mode)
     assert torch.equal(_bits(got), _bits(planes))
     assert _rel(got, plain) < STORAGES[storage][1]
+    if storage == "bfloat16":
+        xr, xi = x.real.bfloat16(), x.imag.bfloat16()
+        assert _rel(got, _bf16_plain(xr, xi, sat, coeff, pa_model=model, n_fft=n_fft,
+                                     mode=mode)) < BF16_PLAIN_TOL
 
 
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])

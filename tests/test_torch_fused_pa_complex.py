@@ -14,8 +14,9 @@ the CPU, where the wrappers run their plain versions:
 * the complex ``sc`` chain at bf16 storage against JAX's
   ``mxu_fft.fused_sc_ifft_pa_fft_planar`` at bf16 storage within 1e-2
   relative L2 (the -40 dB of bf16 storage, tests/test_mxu_fft.py:107-130;
-  0.0078 measured: JAX rounds between its stages, the port at the ends
-  only), and against JAX at float32 storage within 5e-3 (0.0024 measured);
+  0.0085 measured: both round each pass's operand to bf16, at different
+  places), and against JAX at float32 storage within 5e-3 (0.0048
+  measured; 0.0024 when the port's bf16 layouts ran float32 passes);
 * zero rows launch nothing, and complex128 keeps the plane route.
 
 The same bits on the card, where the kernel's interleaved layout must

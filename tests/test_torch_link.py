@@ -101,9 +101,9 @@ def test_counters_equal_jax_float32(alg):
 
 @pytest.mark.parametrize("alg", ["cnc", "mcnc"])
 def test_counters_bf16_within_mc_noise(alg):
-    """At bf16 storage the two packages round at different places (the
-    port's kernel computes in f32 between bf16 ends); totals agree within
-    the rule of tests/test_mxu_fft.py:107-130."""
+    """At bf16 storage the two packages round at different places (both
+    round each pass's operand to bf16, the port on the products' operands
+    only); totals agree within the rule of tests/test_mxu_fft.py:107-130."""
     (jc, jd), (pc, pd) = _run_both(alg, "bfloat16")
     a = np.concatenate([[jc.sum()], jd.sum(0)]).astype(float)
     b = np.concatenate([[pc.sum()], pd.sum(0)]).astype(float)
