@@ -1,0 +1,7 @@
+"""kernel.fused_pa_ms_per_round.host_paced: ``kernel.fused_pa_ms_per_round`` in
+the cells whose host paces, or nearly paces, the round; it moves
+``frames_per_s.host_paced``."""
+
+
+def read(view):
+    return view.read("kernel.fused_pa_ms_per_round")
