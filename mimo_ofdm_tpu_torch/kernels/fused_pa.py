@@ -65,6 +65,7 @@ import torch
 
 from mimo_ofdm_tpu_torch.ops import ofdm
 from mimo_ofdm_tpu_torch.ops.pa import PA_MODELS, apply_pa_planar
+from mimo_ofdm_tpu_torch.utils.spans import spanned
 
 MODES = ("full", "sc")
 STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -155,6 +156,7 @@ def _library_path() -> tuple[str, Path]:
 
 
 @functools.lru_cache(maxsize=None)
+@spanned("setup.kernel_library")
 def build_library() -> tuple[ctypes.CDLL, str]:
     """Compile ``csrc/fused_pa.cu`` for sm_90a (once per source version)
     and load it. Returns the library and ptxas's register/shared-memory

@@ -48,6 +48,7 @@ from mimo_ofdm_tpu_torch.ops.fused_chain import (fused_sc_ifft_pa_fft_planar_io,
                                                  kernel_eligible, storage_dtype)
 from mimo_ofdm_tpu_torch.utils.config import LinkConfig
 from mimo_ofdm_tpu_torch.utils.device import resolve_device
+from mimo_ofdm_tpu_torch.utils.spans import OFF, enabled, span
 
 
 def planar_eligible(cfg: LinkConfig) -> bool:
@@ -188,6 +189,13 @@ def make_planar_frame_fn(cfg: LinkConfig, n_iters: int, *,
     gives ``frame_fn(snr_db, ibo_db, draws=None, ...)``: the IBO, a Python
     float, is taken per call, and the saturation power, Bussgang gains, AGC
     scalers and CNC replica follow it."""
+    with span("setup.frame_fn"):
+        return _build_planar_frame_fn(cfg, n_iters, incl_clean, reroll, storage,
+                                      ibo_as_arg, device)
+
+
+def _build_planar_frame_fn(cfg: LinkConfig, n_iters: int, incl_clean: bool,
+                           reroll: bool, storage: str, ibo_as_arg: bool, device):
     if not planar_eligible(cfg):
         raise ValueError(f"config is not planar-eligible: {cfg}")
     st = storage_dtype(storage)
@@ -214,52 +222,62 @@ def make_planar_frame_fn(cfg: LinkConfig, n_iters: int, *,
     def _frame(snr_db, ibo_db: float, draws: FrameDraws | None,
                batch: int | None, generator: torch.Generator | None
                ) -> FrameCounters:
-        ibo_db = float(ibo_db)
+        with (span("frame", frames=batch if draws is None else draws.batch)
+              if enabled() else OFF):
+            return _stages(snr_db, float(ibo_db), draws, batch, generator)
+
+    def _stages(snr_db, ibo_db: float, draws: FrameDraws | None,
+                batch: int | None, generator: torch.Generator | None
+                ) -> FrameCounters:
         if draws is None:
             draws = draw(batch, generator)
-        hr, hi = channel_planes(draws)                   # [B, n_ant, n_sc] st
+        with span("frame.channel"):
+            hr, hi = channel_planes(draws)               # [B, n_ant, n_sc] st
 
-        # MRT precoder V = conj(H) / sqrt(sum_ant |H|^2)
-        # (reference/antenna_array.py:167-171), f32 norm accumulation
-        rsn = torch.rsqrt(f32sum(hr * hr + hi * hi, -2))[:, None, :]
-        vr = (hr * rsn).to(st)
-        vi = (-hi * rsn).to(st)
+        with span("frame.precoder"):
+            # MRT precoder V = conj(H) / sqrt(sum_ant |H|^2)
+            # (reference/antenna_array.py:167-171), f32 norm accumulation
+            rsn = torch.rsqrt(f32sum(hr * hr + hi * hi, -2))[:, None, :]
+            vr = (hr * rsn).to(st)
+            vi = (-hi * rsn).to(st)
 
-        # constant-IBO bookkeeping (reference/mp_model.py:290-329)
-        vk_pow = f32sum(vr * vr + vi * vi, -1)           # [B, n_ant] f32
-        if alpha_override is not None:
-            ak = torch.full_like(vk_pow, alpha_override)
-        else:
-            ak = per_antenna_alpha(ibo_db, vk_pow, n_sc, n_ant)
-        hvr_t = hr * vr - hi * vi                        # H o V terms, st
-        hvi_t = hr * vi + hi * vr
-        hv_r, hv_i = f32sum(hvr_t, -2), f32sum(hvi_t, -2)   # [B, n_sc] f32
-        akhv_r = f32sum(ak[..., None] * hvr_t, -2)
-        akhv_i = f32sum(ak[..., None] * hvi_t, -2)
-        hv = torch.complex(hv_r, hv_i)
-        akhv = torch.complex(akhv_r, akhv_i)
-        hv_noise_scaler = (hv_r * hv_r + hv_i * hv_i).mean(-1)       # [B]
-        akhv_noise_scaler = (akhv_r * akhv_r + akhv_i * akhv_i).mean(-1)
+            # constant-IBO bookkeeping (reference/mp_model.py:290-329)
+            vk_pow = f32sum(vr * vr + vi * vi, -1)       # [B, n_ant] f32
+            if alpha_override is not None:
+                ak = torch.full_like(vk_pow, alpha_override)
+            else:
+                ak = per_antenna_alpha(ibo_db, vk_pow, n_sc, n_ant)
+            hvr_t = hr * vr - hi * vi                    # H o V terms, st
+            hvi_t = hr * vi + hi * vr
+            hv_r, hv_i = f32sum(hvr_t, -2), f32sum(hvi_t, -2)   # [B, n_sc] f32
+            akhv_r = f32sum(ak[..., None] * hvr_t, -2)
+            akhv_i = f32sum(ak[..., None] * hvi_t, -2)
+            hv = torch.complex(hv_r, hv_i)
+            akhv = torch.complex(akhv_r, akhv_i)
+            hv_noise_scaler = (hv_r * hv_r + hv_i * hv_i).mean(-1)       # [B]
+            akhv_noise_scaler = (akhv_r * akhv_r + akhv_i * akhv_i).mean(-1)
 
-        # PA saturation power under constant IBO (reference/antenna_array.py:313-360)
-        avg_gain = vk_pow.sum(-1) / (n_ant * n_sc)
-        sat_pow = 10.0 ** (ibo_db / 10.0) * avg_samp_pow * avg_gain   # [B]
-        toi_coeff = (pa.toi_to_cubic_coeff(ibo_db, avg_samp_pow * avg_gain)
-                     if pa_model == "toi" else torch.zeros_like(sat_pow))
+            # PA saturation power under constant IBO
+            # (reference/antenna_array.py:313-360)
+            avg_gain = vk_pow.sum(-1) / (n_ant * n_sc)
+            sat_pow = 10.0 ** (ibo_db / 10.0) * avg_samp_pow * avg_gain   # [B]
+            toi_coeff = (pa.toi_to_cubic_coeff(ibo_db, avg_samp_pow * avg_gain)
+                         if pa_model == "toi" else torch.zeros_like(sat_pow))
 
         # clean run (reference/mp_model.py:136-175): without the PA the TX
         # (I)FFT round trip is the identity, so propagation reduces to the
         # combined H o V vector
-        if incl_clean:
-            bits_c = draws.bits_c.to(dev)
-            sym_c = transmit.modulate_users(bits_c, m)
-            noise_c = noise_ops.complex_normal(draws.noise_c.to(dev))
-            rx_c = noise_ops.awgn(sym_c * hv, snr_db,
-                                  avg_sym_pow * hv_noise_scaler, noise_c)
-            rx_bits_c = receivers.standard_receive_sc(rx_c / hv, m)
-            clean_err = bits_ops.count_bit_errors(bits_c, rx_bits_c, axis=-1)
-        else:
-            clean_err = torch.zeros(hv.shape[0], dtype=torch.int32, device=dev)
+        with span("frame.clean"):
+            if incl_clean:
+                bits_c = draws.bits_c.to(dev)
+                sym_c = transmit.modulate_users(bits_c, m)
+                noise_c = noise_ops.complex_normal(draws.noise_c.to(dev))
+                rx_c = noise_ops.awgn(sym_c * hv, snr_db,
+                                      avg_sym_pow * hv_noise_scaler, noise_c)
+                rx_bits_c = receivers.standard_receive_sc(rx_c / hv, m)
+                clean_err = bits_ops.count_bit_errors(bits_c, rx_bits_c, axis=-1)
+            else:
+                clean_err = torch.zeros(hv.shape[0], dtype=torch.int32, device=dev)
 
         # distorted run (reference/mp_model.py:180-222), all planar
         def tx_propagate(sym: torch.Tensor) -> torch.Tensor:
@@ -267,24 +285,28 @@ def make_planar_frame_fn(cfg: LinkConfig, n_iters: int, *,
             combine, for ``[B, n_sc]`` complex symbols; shared by the
             distorted TX and the MCNC replica
             (``reference/corrector.py:198-205``)."""
-            sr = sym.real.to(st)[:, None, :]
-            si = sym.imag.to(st)[:, None, :]
-            pr = sr * vr - si * vi                       # [B, n_ant, n_sc] st
-            pi_ = sr * vi + si * vr
-            fr, fi = fused_sc_ifft_pa_fft_planar_io(
-                pr, pi_, n_fft, pa_model=pa_model, sat=sat_pow[:, None],
-                cubic_coeff=toi_coeff[:, None], rapp_p=cfg.pa.rapp_p_hardness,
-                storage=storage)
+            with span("tx.precode"):
+                sr = sym.real.to(st)[:, None, :]
+                si = sym.imag.to(st)[:, None, :]
+                pr = sr * vr - si * vi                   # [B, n_ant, n_sc] st
+                pi_ = sr * vi + si * vr
+            with span("chain", rows=pr.shape[0] * pr.shape[1]) if enabled() else OFF:
+                fr, fi = fused_sc_ifft_pa_fft_planar_io(
+                    pr, pi_, n_fft, pa_model=pa_model, sat=sat_pow[:, None],
+                    cubic_coeff=toi_coeff[:, None], rapp_p=cfg.pa.rapp_p_hardness,
+                    storage=storage)
             # propagate: sum_ant H o X (reference/channel.py:74-89), f32 accum
-            return torch.complex(f32sum(hr * fr - hi * fi, -2),
-                                 f32sum(hr * fi + hi * fr, -2))
+            with span("tx.combine"):
+                return torch.complex(f32sum(hr * fr - hi * fi, -2),
+                                     f32sum(hr * fi + hi * fr, -2))
 
         bits_d = draws.bits_d.to(dev)
         sym_d = transmit.modulate_users(bits_d, m)
-        noise_d = noise_ops.complex_normal(draws.noise_d.to(dev))
-        rx_d = noise_ops.awgn(tx_propagate(sym_d), snr_db,
-                              avg_sym_pow * akhv_noise_scaler, noise_d)
-        rx_sc = rx_d / akhv
+        tx_d = tx_propagate(sym_d)
+        with span("frame.awgn"):
+            noise_d = noise_ops.complex_normal(draws.noise_d.to(dev))
+            rx_d = noise_ops.awgn(tx_d, snr_db, avg_sym_pow * akhv_noise_scaler, noise_d)
+            rx_sc = rx_d / akhv
 
         if cfg.rx.algorithm == "cnc":
             replica = receivers.make_cnc_replica(
@@ -300,7 +322,8 @@ def make_planar_frame_fn(cfg: LinkConfig, n_iters: int, *,
             one = receivers.standard_receive_sc(rx_sc, m)
             bits_all = one.expand(n_iters + 1, *one.shape)
 
-        dist_err = bits_ops.count_bit_errors(bits_d, bits_all, axis=-1)
-        return FrameCounters(clean_err=clean_err, dist_err=dist_err.T.contiguous())
+        with span("frame.count"):
+            dist_err = bits_ops.count_bit_errors(bits_d, bits_all, axis=-1)
+            return FrameCounters(clean_err=clean_err, dist_err=dist_err.T.contiguous())
 
     return frame_signature(_frame, ibo_as_arg, cfg.pa.ibo_db, draw)

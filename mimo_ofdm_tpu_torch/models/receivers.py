@@ -31,6 +31,7 @@ import torch
 
 from mimo_ofdm_tpu_torch.models import channels, transmit
 from mimo_ofdm_tpu_torch.ops import ofdm, pa, qam
+from mimo_ofdm_tpu_torch.utils.spans import OFF, enabled, span
 
 
 def equalize(rx_fd: torch.Tensor, agc_nfft: torch.Tensor) -> torch.Tensor:
@@ -65,12 +66,14 @@ def cnc_iterate(rx_sc: torch.Tensor, n_iters: int, constel_size: int,
     n_bits], symbols [n_iters+1, ..., n_sc])``."""
     d_est = torch.zeros_like(rx_sc)
     bits_all, sym_all = [], []
-    for _ in range(n_iters + 1):
-        det_sym, det_bits = qam.detect_symbols_and_bits(
-            rx_sc - d_est, constel_size, detect_alpha, dtype=rx_sc.dtype)
-        bits_all.append(det_bits)
-        sym_all.append(det_sym)
-        d_est = replica_fn(det_sym) - det_sym
+    for i in range(n_iters + 1):
+        with span("rx.pass", index=i) if enabled() else OFF:
+            with span("rx.detect"):
+                det_sym, det_bits = qam.detect_symbols_and_bits(
+                    rx_sc - d_est, constel_size, detect_alpha, dtype=rx_sc.dtype)
+            bits_all.append(det_bits)
+            sym_all.append(det_sym)
+            d_est = _replica_update(replica_fn, det_sym)
     return torch.stack(bits_all), torch.stack(sym_all)
 
 
@@ -84,13 +87,23 @@ def cnc_iterate_soft(rx_sc: torch.Tensor, n_iters: int, constel_size: int,
     too, as in :func:`cnc_iterate`."""
     d_est = torch.zeros_like(rx_sc)
     corr_all = []
-    for _ in range(n_iters + 1):
-        corr = rx_sc - d_est
-        det_sym, _ = qam.detect_symbols_and_bits(corr, constel_size, detect_alpha,
-                                                 dtype=rx_sc.dtype)
-        corr_all.append(corr)
-        d_est = replica_fn(det_sym) - det_sym
+    for i in range(n_iters + 1):
+        with span("rx.pass", index=i) if enabled() else OFF:
+            with span("rx.detect"):
+                corr = rx_sc - d_est
+                det_sym, _ = qam.detect_symbols_and_bits(corr, constel_size, detect_alpha,
+                                                         dtype=rx_sc.dtype)
+            corr_all.append(corr)
+            d_est = _replica_update(replica_fn, det_sym)
     return torch.stack(corr_all)
+
+
+def _replica_update(replica_fn, det_sym: torch.Tensor) -> torch.Tensor:
+    """The next pass's distortion estimate, ``replica_fn(det_sym) - det_sym``."""
+    with span("rx.replica"):
+        replica = replica_fn(det_sym)
+    with span("rx.update"):
+        return replica - det_sym
 
 
 def make_cnc_replica(constel_size: int, n_fft: int, n_sc: int, ibo_db: float,

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from mimo_ofdm_tpu_torch.ops import fused_chain, ofdm, pa, qam
+from mimo_ofdm_tpu_torch.utils.spans import OFF, enabled, span
 
 
 def modulate_users(bits: torch.Tensor, constel_size: int,
@@ -75,13 +76,14 @@ def ifft_pa_fft(fd_clean: torch.Tensor, pa_model: str, sat_power,
     per-row PA -> ortho FFT; the kernel's ``full`` mode with
     ``use_mxu_fft``."""
     n_fft = fd_clean.shape[-1]
-    if use_mxu_fft and fused_chain.kernel_eligible(n_fft, n_fft, "full"):
-        return fused_chain.fused_ifft_pa_fft_planar(
-            fd_clean, pa_model=pa_model, sat=sat_power, cubic_coeff=toi_coeff,
-            rapp_p=rapp_p, storage=mxu_storage)
-    td_dist = pa_transfer(ofdm.fd_to_td(fd_clean), pa_model, sat_power, rapp_p,
-                          toi_coeff)
-    return ofdm.td_to_fd(td_dist)
+    with span("chain", rows=fd_clean.numel() // n_fft) if enabled() else OFF:
+        if use_mxu_fft and fused_chain.kernel_eligible(n_fft, n_fft, "full"):
+            return fused_chain.fused_ifft_pa_fft_planar(
+                fd_clean, pa_model=pa_model, sat=sat_power, cubic_coeff=toi_coeff,
+                rapp_p=rapp_p, storage=mxu_storage)
+        td_dist = pa_transfer(ofdm.fd_to_td(fd_clean), pa_model, sat_power, rapp_p,
+                              toi_coeff)
+        return ofdm.td_to_fd(td_dist)
 
 
 def ifft_pa_fft_sc(per_ant_sc: torch.Tensor, n_fft: int, pa_model: str,
@@ -94,14 +96,15 @@ def ifft_pa_fft_sc(per_ant_sc: torch.Tensor, n_fft: int, pa_model: str,
     never formed (``reference/antenna_array.py:110-140`` then the strip of
     ``reference/corrector.py:66``)."""
     n_sc = per_ant_sc.shape[-1]
-    if use_mxu_fft and fused_chain.kernel_eligible(n_fft, n_sc, "sc"):
-        return fused_chain.fused_sc_ifft_pa_fft_planar(
-            per_ant_sc, n_fft, pa_model=pa_model, sat=sat_power,
-            cubic_coeff=toi_coeff, rapp_p=rapp_p, storage=mxu_storage)
-    fd_clean = ofdm.map_subcarriers(per_ant_sc, n_fft)
-    fd_dist = ifft_pa_fft(fd_clean, pa_model, sat_power, rapp_p, toi_coeff,
-                          use_mxu_fft=use_mxu_fft, mxu_storage=mxu_storage)
-    return ofdm.extract_subcarriers(fd_dist, n_sc)
+    with span("chain", rows=per_ant_sc.numel() // n_sc) if enabled() else OFF:
+        if use_mxu_fft and fused_chain.kernel_eligible(n_fft, n_sc, "sc"):
+            return fused_chain.fused_sc_ifft_pa_fft_planar(
+                per_ant_sc, n_fft, pa_model=pa_model, sat=sat_power,
+                cubic_coeff=toi_coeff, rapp_p=rapp_p, storage=mxu_storage)
+        fd_clean = ofdm.map_subcarriers(per_ant_sc, n_fft)
+        fd_dist = ifft_pa_fft(fd_clean, pa_model, sat_power, rapp_p, toi_coeff,
+                              use_mxu_fft=use_mxu_fft, mxu_storage=mxu_storage)
+        return ofdm.extract_subcarriers(fd_dist, n_sc)
 
 
 def array_transmit_fd(bits: torch.Tensor, *, constel_size: int, n_fft: int,

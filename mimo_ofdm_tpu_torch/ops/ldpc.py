@@ -27,6 +27,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from mimo_ofdm_tpu_torch.utils.spans import spanned
+
 
 @dataclass(frozen=True)
 class QcLdpcCode:
@@ -170,6 +172,7 @@ def encode(code: QcLdpcCode, info_bits: torch.Tensor) -> torch.Tensor:
     return torch.cat([c, p.flatten(-2).to(torch.int8)], dim=-1)
 
 
+@spanned("decode")
 def decode(code: QcLdpcCode, llr: torch.Tensor, n_iters: int = 25,
            normalization: float = 0.75, algorithm: str = "minsum") -> torch.Tensor:
     """Flooding BP decode (``mimo_ofdm_tpu/ops/ldpc.py:190-267``):

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from mimo_ofdm_tpu_torch.ops.bits import bits_to_ints, gray_encode, ints_to_bits
+from mimo_ofdm_tpu_torch.utils.spans import spanned
 
 
 @functools.lru_cache(maxsize=None)
@@ -147,6 +148,7 @@ def _bit_halves(constel_size: int, device: torch.device) -> tuple[torch.Tensor, 
     return (torch.as_tensor(ones, device=device), torch.as_tensor(zeros, device=device))
 
 
+@spanned("soft_demap")
 def soft_llr(symbols: torch.Tensor, constel_size: int, noise_var,
              alpha: torch.Tensor | float = 1.0) -> torch.Tensor:
     """Exact per-bit log-likelihood ratios, MSB-first, positive = bit 1

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from mimo_ofdm_tpu_torch.ops import ldpc, nr_ldpc
+from mimo_ofdm_tpu_torch.utils.spans import spanned
 
 # 3GPP TS 38.212 §5.1 generator polynomials (MSB first, degree bit implicit)
 CRC24A = (24, 0x864CFB)
@@ -285,6 +286,7 @@ def _derate_match(chain: TransportChain, llr: torch.Tensor) -> torch.Tensor:
     return torch.where(filler, _FILLER_LLR, buf)
 
 
+@spanned("decode")
 def transport_decode(chain: TransportChain, llr: torch.Tensor, n_iters: int = 25,
                      algorithm: str = "minsum",
                      serial_blocks: int = 0) -> tuple[torch.Tensor, torch.Tensor]:

@@ -11,14 +11,17 @@ codeword of ``ldpc_coded_ber(family="ira")``).
     python -m mimo_ofdm_tpu_torch.utils.profiling [--batch 128] [--rounds 3] [--frames tdl,mu,coded]
 
 Prints one JSON line per frame and arm with the wall time per round, the
-device-busy time per round (sum of kernel durations), the idle share, the
-kernels that take the most device time, grouped by name, and what the
-complex-ended chain calls (``transmit.ifft_pa_fft_sc``/``ifft_pa_fft``)
-cost: their device ms, the fused kernel's share of it, and the ms and
-launches of the rest, the conversions around the kernel; for the coded
-frames the device time by op class (decode, soft demap, chain, rest), the
-chain's conversions, the kernel launches and the peak device memory of a
-round instead. Needs a CUDA device.
+device-busy time per round (sum of kernel durations), the idle share (the
+union of the device's operations over the traced window), the kernels that
+take most device time, grouped by name, and what the chain calls cost: the
+device ms of the work launched inside the program's ``chain`` spans
+(``utils/spans.py``: the planar TX and MCNC passes, and the complex-ended
+calls ``transmit.ifft_pa_fft_sc``/``ifft_pa_fft``), the fused kernel's
+share of it, and the ms and launches of the rest, the conversions around
+the kernel; for the coded frames the device time by span (``decode``,
+``soft_demap``, ``chain``, the rest), the chain's conversions, the kernel
+launches and the peak device memory of a round instead. The profiles turn
+the program's span recorder on while they trace. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,7 +29,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
-import functools
 import json
 import os
 import subprocess
@@ -36,9 +38,8 @@ from collections import defaultdict
 
 import torch
 
-from mimo_ofdm_tpu_torch.models import link, link_ldpc, link_mu, transmit
-from mimo_ofdm_tpu_torch.ops import ldpc, qam, transport
-from mimo_ofdm_tpu_torch.utils import config
+from mimo_ofdm_tpu_torch.models import link, link_ldpc, link_mu
+from mimo_ofdm_tpu_torch.utils import config, spans
 
 
 def card() -> str:
@@ -100,13 +101,11 @@ class ThroughputMeter:
         return self.bits / max(time.perf_counter() - self.t0, 1e-9)
 
 
-def _kernel_times(prof, skip=()) -> dict[str, list[float]]:
-    """Device time (us) and count of every kernel in the trace, by name;
-    the ``record_function`` ranges named in ``skip``, which the profiler
-    also lays on the device's timeline, are left out."""
+def _kernel_times(prof) -> dict[str, list[float]]:
+    """Device time (us) and count of every kernel in the trace, by name."""
     out: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.key in skip:
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         t = getattr(evt, "self_device_time_total", None)
         if t is None:
@@ -117,22 +116,42 @@ def _kernel_times(prof, skip=()) -> dict[str, list[float]]:
 
 
 FUSED_KERNEL = "fused_ifft_pa_fft"      # the fused kernel's name, in every instantiation
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
-# the complex-ended chain calls: the fused kernel, and the conversions
-# between complex and planes around it where there are any
-CHAIN_CLASSES = {"chain": ((transmit, "ifft_pa_fft_sc"), (transmit, "ifft_pa_fft"))}
+# the program's spans (utils/spans.py) that the profiles split device work by
+CHAIN_SPANS = ("chain",)
+CODED_SPANS = ("decode", "soft_demap", "chain")
 
 
-def _trace_work(prof, classes) -> dict:
-    """:func:`device_work_by_class` of the profiler's Chrome trace."""
+@contextlib.contextmanager
+def recording():
+    """The program's span recorder on, from an empty record, while the block
+    runs; yields the list that receives the block's spans."""
+    was_on = spans.enabled()
+    spans.enable()
+    out: list = []
+    try:
+        yield out
+    finally:
+        out.extend(spans.collect())
+        if not was_on:
+            spans.disable()
+
+
+def _trace_work(prof, recorded, labels) -> dict:
+    """:func:`device_work_by_class` and :func:`idle_share` of the
+    profiler's Chrome trace, with the spans ``recorded`` in its window."""
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
         prof.export_chrome_trace(path)
         with open(path) as f:
-            return device_work_by_class(json.load(f), classes)
+            trace = json.load(f)
     finally:
         os.remove(path)
+    on_trace = spans.on_trace_clock(recorded, int(trace.get("baseTimeNanoseconds", 0)))
+    return {"work": device_work_by_class(trace, on_trace, labels),
+            "idle_share": idle_share(trace)}
 
 
 def chain_costs(work: dict, rounds: int) -> dict:
@@ -149,32 +168,33 @@ def profile_round(cfg: config.LinkConfig, n_iters: int, batch: int,
                   rounds: int, device="cuda", top: int = 12) -> dict:
     """Profile ``rounds`` rounds after two warm-up rounds; a config with
     several users profiles ``link_mu``'s round at its default two-user
-    geometry. The chain calls run inside ``record_function`` ranges
-    (:data:`CHAIN_CLASSES`), so that their conversions can be told apart."""
+    geometry. The program's ``chain`` spans tell the chain calls' work, and
+    so their conversions, apart."""
     make = link_mu.make_mu_round_fn if cfg.modem.n_users > 1 else link.make_round_fn
     round_fn = make(cfg, n_iters, batch, device=device)
     for i in range(2):
         round_fn(1, 1000 + i, 15.0)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with labelled(CHAIN_CLASSES), torch.profiler.profile(activities=acts) as prof:
+    with recording() as recorded, torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for i in range(rounds):
             round_fn(1, i, 15.0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kt = _kernel_times(prof, CHAIN_CLASSES)
+    kt = _kernel_times(prof)
     busy_us = sum(v[0] for v in kt.values())
     ranked = sorted(kt.items(), key=lambda kv: -kv[1][0])
     fused = sum(v[0] for k, v in kt.items() if FUSED_KERNEL in k)
+    traced = _trace_work(prof, recorded, CHAIN_SPANS)
     return {
         "alg": cfg.rx.algorithm, "batch": batch, "rounds": rounds,
         "wall_ms_per_round": wall * 1e3 / rounds,
         "device_busy_ms_per_round": busy_us / 1e3 / rounds,
-        "idle_share": 1.0 - busy_us / 1e6 / wall,
+        "idle_share": traced["idle_share"],
         "fused_pa_ms_per_round": fused / 1e3 / rounds,
         "kernel_launches_per_round": sum(v[1] for v in kt.values()) / rounds,
-        **chain_costs(_trace_work(prof, CHAIN_CLASSES), rounds),
+        **chain_costs(traced["work"], rounds),
         "top": [{"kernel": k[:120], "ms_per_round": v[0] / 1e3 / rounds,
                  "calls_per_round": v[1] / rounds} for k, v in ranked[:top]],
     }
@@ -182,59 +202,29 @@ def profile_round(cfg: config.LinkConfig, n_iters: int, batch: int,
 
 CODED_BATCH = 16     # the coded experiments' default frames a round
 
-# the coded round's op classes: the functions whose kernels each one owns
-CODED_CLASSES = {"decode": ((transport, "transport_decode"), (ldpc, "decode")),
-                 "soft_demap": ((qam, "soft_llr"),),
-                 "chain": ((transmit, "ifft_pa_fft_sc"),)}
 
-
-@contextlib.contextmanager
-def labelled(classes=CODED_CLASSES):
-    """Run each class's functions inside ``record_function(class)`` while
-    the block runs (the callers look them up on their modules)."""
-    saved = []
-
-    def wrap(label, fn):
-        @functools.wraps(fn)
-        def wrapped(*args, **kwargs):
-            with torch.profiler.record_function(label):
-                return fn(*args, **kwargs)
-        return wrapped
-
-    try:
-        for label, targets in classes.items():
-            for mod, name in targets:
-                fn = getattr(mod, name)
-                saved.append((mod, name, fn))
-                setattr(mod, name, wrap(label, fn))
-        yield
-    finally:
-        for mod, name, fn in reversed(saved):
-            setattr(mod, name, fn)
-
-
-def device_work_by_class(trace: dict, labels) -> dict:
-    """Device work by op class from a Chrome trace of the profiler: for each
-    class and ``rest``, its device ms, its kernels, and the ms and launches
-    of the fused kernel among them. A kernel belongs to the innermost
-    labelled range that holds the host call that launched it (matched by
-    correlation id), else to ``rest``; memory copies and sets count as
-    device time too."""
-    launched_at, spans, work = {}, [], []
+def device_work_by_class(trace: dict, on_trace: list, labels) -> dict:
+    """Device work by span name from a Chrome trace of the profiler and the
+    program's spans on its clock (``spans.on_trace_clock``): for each name
+    in ``labels`` and ``rest``, its device ms, its kernels, and the ms and
+    launches of the fused kernel among them. A kernel belongs to the
+    innermost span named in ``labels`` that holds the host call that
+    launched it (matched by correlation id), else to ``rest``; memory copies
+    and sets count as device time too."""
+    launched_at, work = {}, []
+    ranges = [(sp.start, sp.end, sp.name) for sp in on_trace if sp.name in labels]
     for e in trace["traceEvents"]:
         cat, args = e.get("cat", ""), e.get("args", {})
         if cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
             launched_at[args["correlation"]] = e["ts"]
-        elif cat == "user_annotation" and e.get("name") in labels:
-            spans.append((e["ts"], e["ts"] + e["dur"], e["name"]))
-        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+        elif cat in DEVICE_CATS:
             work.append((e["dur"], args.get("correlation"), cat == "kernel",
                          FUSED_KERNEL in e.get("name", "")))
     out = {k: {"ms": 0.0, "kernels": 0, "fused_ms": 0.0, "fused_kernels": 0}
            for k in [*labels, "rest"]}
     for dur, corr, is_kernel, is_fused in work:
         ts = launched_at.get(corr)
-        inside = [sp for sp in spans if ts is not None and sp[0] <= ts <= sp[1]]
+        inside = [sp for sp in ranges if ts is not None and sp[0] <= ts <= sp[1]]
         c = out[min(inside, key=lambda sp: sp[1] - sp[0])[2] if inside else "rest"]
         c["ms"] += dur / 1e3
         c["kernels"] += is_kernel
@@ -243,11 +233,28 @@ def device_work_by_class(trace: dict, labels) -> dict:
     return out
 
 
+def idle_share(trace: dict) -> float:
+    """The share of the traced window (its first event to its last) in
+    which no device operation ran: 1 - the union of the kernels', copies'
+    and sets' intervals over the window."""
+    events = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e.get("cat", ""))
+              for e in trace["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    if not events:
+        return 1.0
+    w0, w1 = min(s for s, _, _ in events), max(e for _, e, _ in events)
+    busy, reach = 0.0, w0
+    for s, e in sorted((s, e) for s, e, cat in events if cat in DEVICE_CATS):
+        if e > reach:
+            busy += e - max(s, reach)
+            reach = e
+    return 1.0 - busy / (w1 - w0) if w1 > w0 else 1.0
+
+
 def profile_coded_round(round_fn, rounds: int, snr_db: float) -> dict:
     """Profile ``rounds`` coded rounds after a warm-up round: wall and
-    device-busy ms a round, the idle share, device ms a round by op class
-    (:data:`CODED_CLASSES`), kernel launches a round, and the peak device
-    memory of one round."""
+    device-busy ms a round, the idle share, device ms a round by the
+    program's spans (:data:`CODED_SPANS`, the rest apart), kernel launches a
+    round, and the peak device memory of one round."""
     round_fn(1, 1000, snr_db)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -255,17 +262,18 @@ def profile_coded_round(round_fn, rounds: int, snr_db: float) -> dict:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with labelled(), torch.profiler.profile(activities=acts) as prof:
+    with recording() as recorded, torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for i in range(rounds):
             round_fn(1, i, snr_db)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    work = _trace_work(prof, CODED_CLASSES)
+    traced = _trace_work(prof, recorded, CODED_SPANS)
+    work = traced["work"]
     busy = sum(c["ms"] for c in work.values())
     return {"rounds": rounds, "wall_ms_per_round": wall * 1e3 / rounds,
             "device_busy_ms_per_round": busy / rounds,
-            "idle_share": 1.0 - busy / 1e3 / wall,
+            "idle_share": traced["idle_share"],
             "device_ms_per_round_by_class": {k: c["ms"] / rounds for k, c in work.items()},
             **chain_costs(work, rounds),
             "kernel_launches_per_round": sum(c["kernels"] for c in work.values()) / rounds,

@@ -507,6 +507,82 @@ def test_rounds_never_wait_for_the_device(cuda, kind):
     assert out.dtype == torch.int32
 
 
+def _planar_cfg(kind: str) -> config.LinkConfig:
+    """The bench's bf16 Rayleigh frame (``rayleigh_cnc``/``rayleigh_mcnc``) or
+    the canonical LOS configuration (``los_cnc``), on bf16 planes."""
+    from mimo_ofdm_tpu_torch import bench
+    channel, alg = kind.split("_")
+    if channel == "rayleigh":
+        return bench.arm_config(bench.workload(), alg)
+    cfg, _ = config.canonical_miso_cnc()
+    assert cfg.channel.model == "los" and cfg.rx.algorithm == alg
+    return cfg
+
+
+@pytest.mark.parametrize("kind", ["rayleigh_cnc", "rayleigh_mcnc", "los_cnc"])
+def test_planar_rounds_never_wait_for_the_device_with_spans_on(cuda, kind):
+    """The stage spans read no tensor: a planar round at full width with the
+    recorder on makes no call that synchronizes with the device, and records
+    one ``frame`` span."""
+    from mimo_ofdm_tpu_torch.utils import spans
+    cfg = _planar_cfg(kind)
+    assert cfg.channel_storage == cfg.mxu_fft_storage == "bfloat16"
+    round_fn = link.make_round_fn(cfg, 8, 4, device=cuda)
+    round_fn(0, 0, 20.0)
+    torch.cuda.synchronize()
+    spans.enable()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = round_fn(0, 1, 20.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        spans.disable()
+    rec = spans.collect()
+    assert out.dtype == torch.int32
+    assert [s.name for s in rec if s.parent == -1] == ["frame"]
+
+
+@pytest.mark.parametrize("alg", ["cnc", "mcnc"])
+def test_every_fused_launch_lies_in_a_chain_span_on_the_trace_clock(cuda, alg, tmp_path):
+    """Under a card-only profiler with the recorder on, the runtime or
+    driver call that launched each fused kernel (matched by correlation id)
+    lies inside a ``chain`` span put on the trace's clock, and that span is
+    the innermost one open there."""
+    import json
+
+    from mimo_ofdm_tpu_torch.utils import spans
+    cfg = _planar_cfg(f"rayleigh_{alg}")
+    frame_fn = link.make_frame_fn(cfg, 8, device=cuda)
+    draws = link.FrameDraws.draw(cfg, 8, torch.Generator(device=cuda).manual_seed(5))
+    frame_fn(15.0, draws)
+    torch.cuda.synchronize()
+    spans.enable()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                frame_fn(15.0, draws)
+            torch.cuda.synchronize()
+    finally:
+        spans.disable()
+    rec = spans.collect()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    on_trace = spans.on_trace_clock(rec, trace["baseTimeNanoseconds"])
+    launched_at = {e["args"]["correlation"]: e["ts"] for e in trace["traceEvents"]
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and "correlation" in e.get("args", {})}
+    fused = [e for e in trace["traceEvents"]
+             if e.get("cat") == "kernel" and "fused_ifft_pa_fft" in e.get("name", "")]
+    assert len(fused) == 3 * (8 + 2)
+    assert sum(sp.name == "frame" for sp in on_trace) == 3
+    for k in fused:
+        t = launched_at[k["args"]["correlation"]]
+        holding = [sp for sp in on_trace if sp.start <= t <= sp.end]
+        assert holding, (t, k["name"])
+        assert min(holding, key=lambda sp: sp.end - sp.start).name == "chain"
+
+
 def test_bench_on_the_card(cuda, tmp_path, monkeypatch):
     """The bench function on the card at a small shape, three rounds in
     flight: bench.py's keys plus the card's name, positive windows, 10

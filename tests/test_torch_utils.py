@@ -20,7 +20,7 @@ from mimo_ofdm_tpu.utils import progress as j_progress
 from mimo_ofdm_tpu.utils.config import LinkConfig as JLinkConfig
 
 from mimo_ofdm_tpu_torch.kernels import fused_pa
-from mimo_ofdm_tpu_torch.utils import baseline_cpu, compile_cache, profiling, progress
+from mimo_ofdm_tpu_torch.utils import baseline_cpu, compile_cache, profiling, progress, spans
 from mimo_ofdm_tpu_torch.utils.config import LinkConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -281,9 +281,10 @@ def test_wallclock_trace_and_throughput_meter(tmp_path, capsys):
 
 
 def test_device_work_by_class_splits_the_chain():
-    """A synthetic Chrome trace: each kernel goes to the innermost labelled
-    range around its launch, and the fused kernel's ms and launches are
-    told apart from the conversions around it in the chain."""
+    """A synthetic Chrome trace and the program's spans on its clock: each
+    kernel goes to the innermost span of a listed name around its launch,
+    and the fused kernel's ms and launches are told apart from the
+    conversions around it in the chain."""
     def launch(corr, ts):
         return {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": ts,
                 "args": {"correlation": corr}}
@@ -294,15 +295,16 @@ def test_device_work_by_class_splits_the_chain():
 
     fused = "void (anonymous namespace)::fused_ifft_pa_fft_kernel<12, true, Planes<float> >"
     trace = {"traceEvents": [
-        {"cat": "user_annotation", "name": "chain", "ts": 10, "dur": 30},
-        {"cat": "user_annotation", "name": "decode", "ts": 50, "dur": 10},
         launch(1, 12), kernel(1, "elementwise_kernel<copy>", 40.0),
         launch(2, 20), kernel(2, fused, 200.0),
         launch(3, 25), kernel(3, "complex_kernel_cuda", 60.0),
         launch(4, 55), kernel(4, "decode_kernel", 500.0),
         launch(5, 70), kernel(5, fused, 100.0),
         {"cat": "gpu_memset", "name": "Memset", "dur": 5.0, "args": {"correlation": 6}}]}
-    work = profiling.device_work_by_class(trace, ("chain", "decode"))
+    on_trace = [spans.TraceSpan(0, 80, "frame", -1, 0, {}),
+                spans.TraceSpan(10, 40, "chain", 0, 0, {"rows": 4}),
+                spans.TraceSpan(50, 60, "decode", 0, 0, {})]
+    work = profiling.device_work_by_class(trace, on_trace, ("chain", "decode"))
     assert work["chain"] == pytest.approx({"ms": 0.3, "kernels": 3, "fused_ms": 0.2, "fused_kernels": 1})
     assert work["decode"] == pytest.approx({"ms": 0.5, "kernels": 1, "fused_ms": 0.0, "fused_kernels": 0})
     assert work["rest"] == pytest.approx({"ms": 0.105, "kernels": 1, "fused_ms": 0.1, "fused_kernels": 1})
@@ -310,6 +312,18 @@ def test_device_work_by_class_splits_the_chain():
     assert costs == pytest.approx({"chain_ms_per_round": 0.15, "chain_fused_ms_per_round": 0.1,
                                    "conversion_ms_per_round": 0.05,
                                    "conversion_launches_per_round": 1.0})
+
+
+def test_idle_share_is_a_union_over_the_traced_window():
+    """Overlapping kernels count once, and the window runs from the trace's
+    first event to its last, host events included."""
+    def x(cat, ts, dur):
+        return {"ph": "X", "cat": cat, "name": cat, "ts": ts, "dur": dur}
+
+    trace = {"traceEvents": [x("cpu_op", 0, 5), x("kernel", 10, 20), x("kernel", 20, 20),
+                             x("gpu_memcpy", 60, 10), x("cuda_runtime", 90, 10),
+                             {"ph": "M", "name": "process_name"}]}
+    assert profiling.idle_share(trace) == pytest.approx(1 - (30 + 10) / 100)
 
 
 def test_port_imports_without_matplotlib():
