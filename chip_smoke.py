@@ -153,6 +153,7 @@ import ast
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -173,6 +174,10 @@ BF16_TOL = 1e-2                 # relative L2 of a bf16 layout against the exact
 # passes and roundings): under 1e-3 on an H100, where the earlier
 # float32-pass arithmetic with bf16 loads and stores reads 4.6e-3
 BF16_PLAIN_TOL = 2e-3
+# the layouts that the paths may leave unlaunched: the transmitter's chain
+# is precoded, so the planes take complex128 chain calls only
+PLANES_LAYOUTS = ("planes_bf16", "planes_f32")
+PRECODED_LAYOUTS = ("precoded_bf16", "precoded_f32")
 RESULTS: dict = {}
 LAYOUT_LAUNCHES: dict = {}      # the paths' kernel launches by I/O layout, summed
 
@@ -2112,10 +2117,11 @@ def bench_phase(fp, bench, dev, sync: dict, card: str = "") -> dict:
 
 def bench_shapes(fp, ofdm, dev, settings: dict, card: str = "") -> dict:
     """The kernel at the bench's shapes (phase 16's settings): the TX launch
-    on bf16 planes ``[batch * 64, 2048]`` of each arm (the MCNC replica
-    passes too) and the CNC replica pass in the interleaved bf16 layout
-    ``[batch, 2048]``, each within 1e-2 relative L2 of the exact plain
-    version and 2e-3 of the bf16 one."""
+    on bf16 planes ``[batch * 64, 2048]`` of each arm, each within 1e-2
+    relative L2 of the exact plain version and 2e-3 of the bf16 one, and in
+    the precoded bf16 layout, which the TX and the MCNC replica passes run
+    (:func:`precoded_timing`), and the CNC replica pass in the interleaved
+    bf16 layout ``[batch, 2048]``."""
     g = torch.Generator(device=dev).manual_seed(16)
     tx = {"bench_tx": settings["batch"]}
     if settings["mcnc_batch"] not in (None, settings["batch"]):
@@ -2126,6 +2132,8 @@ def bench_shapes(fp, ofdm, dev, settings: dict, card: str = "") -> dict:
         check(out[name]["rel_err"] <= BF16_TOL
               and out[name]["rel_err_bf16_plain"] <= BF16_PLAIN_TOL,
               f"kernel at {name}", out[name], "bench")
+        out[f"{name}_precoded"] = precoded_timing(fp, ofdm, dev, g, f"{name}_precoded", b,
+                                                  torch.bfloat16, card)
     out["bench_cnc_replica"] = layout_timing(fp, ofdm, dev, g, "bench_cnc_replica",
                                              settings["batch"], 4096, "sc", "bfloat16", card)
     return out
@@ -2180,6 +2188,81 @@ def planes_timing(fp, ofdm, dev, g, name: str, rows: int, dtype, card: str = "",
     return line
 
 
+def precoded_timing(fp, ofdm, dev, g, name: str, frames: int, dtype, card: str = "",
+                    n_ant: int = 64, n_fft: int = 4096, n_sc: int = 2048) -> dict:
+    """The precoded layout at the transmitter's shape, ``frames`` frames of
+    ``n_ant`` rows on ``sc`` planes of ``dtype``, softlim at sat 0.5: CUDA
+    events and graph replay of ``fused_precoded_ifft_pa_fft``, and of the
+    route it replaces (``precode_planes``, then the planes' layout) and of
+    that route's launch alone, the precode followed by the layout's plain
+    version and by :func:`clip_chain`, and the bound (the precoder's planes
+    in, the output planes out, the symbols once a frame). Fails unless the
+    layout equals that route bit for bit and agrees with the plain version
+    on the same inputs within 1e-5 (f32) or 1e-2 (bf16; the bf16 plain
+    version within 2e-3) relative L2."""
+    sym = torch.complex(torch.randn(frames, n_sc, generator=g, device=dev),
+                        torch.randn(frames, n_sc, generator=g, device=dev))
+    v = torch.randn(2, frames, n_ant, n_sc, generator=g, device=dev) / math.sqrt(n_ant)
+    vr, vi = v[0].to(dtype), v[1].to(dtype)
+    rows = frames * n_ant
+    sat = torch.full((frames, n_ant), 0.5, device=dev)
+    coeff = torch.zeros(frames, n_ant, device=dev)
+    kw = dict(pa_model="softlim", n_fft=n_fft)
+
+    def precoded():
+        return fp.fused_precoded_ifft_pa_fft(sym, vr, vi, sat, coeff, **kw)
+
+    def eager():
+        return fp.fused_ifft_pa_fft(*fp.precode_planes(sym, vr, vi), sat, coeff, mode="sc", **kw)
+
+    def plain():
+        pr, pi = fp.fused_ifft_pa_fft_plain(*fp.precode_planes(sym, vr, vi), sat, coeff,
+                                            mode="sc", **kw)
+        return torch.complex(pr.float(), pi.float())
+
+    def full():
+        pr, pi = fp.precode_planes(sym, vr, vi)
+        return ofdm.map_subcarriers(torch.complex(pr.float(), pi.float()), n_fft)
+
+    pr, pi = fp.precode_planes(sym, vr, vi)
+    got, want, ref = precoded(), eager(), plain()
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    equal = all(torch.equal(a.view(bits), b.view(bits)) for a, b in zip(got, want))
+    got = torch.complex(got[0].float(), got[1].float())
+    n_bytes = rows * n_sc * 2 * vr.element_size() * 2 + frames * n_sc * 8 + rows * 8
+    n_ops = rows * fp.flops_per_row(n_fft, "sc")
+    bytes_ms, op_ms = n_bytes / H100_BYTES_PER_S * 1e3, ops_bound_ms(n_ops, dtype)
+    ms, exact_ms = time_ms(precoded), time_ms(plain)
+    line = {"rows": rows, "mode": "sc", "ms": ms, "graph_ms": graph_ms(precoded),
+            "layout": "precoded_bf16" if dtype == torch.bfloat16 else "precoded_f32",
+            "eager_route_ms": time_ms(eager), "eager_route_graph_ms": graph_ms(eager),
+            "planes_ms": time_ms(lambda: fp.fused_ifft_pa_fft(pr, pi, sat, coeff, mode="sc",
+                                                              **kw)),
+            "plain_ms": exact_ms, "exact_plain_ms": exact_ms,
+            "library_ms": time_ms(lambda: clip_chain(full(), sat)),
+            "library_noclip_ms": time_ms(lambda: torch.fft.fft(
+                torch.fft.ifft(full(), norm="ortho"), norm="ortho")),
+            "bound_ms": max(bytes_ms, op_ms), "bound_share": max(bytes_ms, op_ms) / ms,
+            "bound_by": "bytes" if bytes_ms > op_ms else "operations", "bytes": n_bytes,
+            "flops": n_ops, "rel_err": rel_err(got, ref),
+            "max_abs_err": float((got - ref).abs().max()),
+            "bitwise_equal_eager_route": equal, "card": card}
+    if dtype == torch.bfloat16:
+        def bf16():
+            return bf16_plain(fp, pr, pi, sat, coeff, mode="sc", **kw)
+        line.update(bf16_plain_columns(fp, rows, n_fft, got, bf16(), bf16),
+                    bound_ms_f32_rate=max(bytes_ms, n_ops / H100_F32_FLOPS * 1e3))
+    print(json.dumps({"phase": "timing", "shape": name, **line}), flush=True)
+    tol = 1e-5 if dtype == torch.float32 else BF16_TOL
+    check(equal and line["rel_err"] <= tol
+          and line.get("rel_err_bf16_plain", 0.0) <= BF16_PLAIN_TOL
+          and bool(torch.isfinite(got).all()),
+          f"precoded layout at {name}: the eager precode and the planes bit for bit, "
+          "the plain version within its tolerance", line, "timing")
+    return line
+
+
 def bf16_plain_columns(fp, rows: int, n_fft: int, got, plain, plain_fn) -> dict:
     """A bf16 layout's timing line against its own plain version: that
     version's time (``plain_ms``; the exact one's stays ``exact_plain_ms``),
@@ -2197,7 +2280,8 @@ def bf16_plain_columns(fp, rows: int, n_fft: int, got, plain, plain_fn) -> dict:
 def timing(fp, ofdm, dev, batch: int, card: str = "", n_fft: int = 4096,
            n_sc: int = 2048) -> dict:
     """Phase 6: kernel, plain and torch.fft chain (with and without the
-    clip) at the main path's shapes on planes; then the interleaved bf16
+    clip) at the main path's shapes on planes; the precoded f32 layout at
+    the TX shape (:func:`precoded_timing`); then the interleaved bf16
     layout at the TX shape (the MU link's TX) and at an MCNC-MU replica
     pass (:func:`layout_timing`)."""
     g = torch.Generator(device=dev).manual_seed(1)
@@ -2211,6 +2295,8 @@ def timing(fp, ofdm, dev, batch: int, card: str = "", n_fft: int = 4096,
             check(out[name]["rel_err"] <= BF16_TOL
                   and out[name]["rel_err_bf16_plain"] <= BF16_PLAIN_TOL,
                   f"bf16 kernel at the {name} shape", out[name], "timing")
+    out["tx_precoded_f32"] = precoded_timing(fp, ofdm, dev, g, "tx_precoded_f32", batch,
+                                             torch.float32, card, n_fft=n_fft, n_sc=n_sc)
     for shape in MAIN_SHAPES[:2]:
         out[shape[0]] = layout_timing(fp, ofdm, dev, g, *shape, card=card)
     return out
@@ -2222,7 +2308,9 @@ def kernels_line(paths: dict, times: dict, analysis_times: dict, smi: str) -> di
     and its times at the shape where the paths launch it most; the first
     row also carries the launches in all, by path, and the
     ``fused_ifft_clip_fft`` entry point's numbers. Fails if the layouts'
-    launches do not add up to the paths' or a layout was never launched."""
+    launches do not add up to the paths' or a layout other than
+    ``PLANES_LAYOUTS`` was never launched; the planes' rows keep their
+    times at the same shapes."""
     clip = paths["components_fused_ifft_clip_fft"]
     launches = sum(p["launches"] for p in paths.values())
     if sum(LAYOUT_LAUNCHES.values()) != launches:
@@ -2232,7 +2320,11 @@ def kernels_line(paths: dict, times: dict, analysis_times: dict, smi: str) -> di
     shapes = {**times, **analysis_times}
     # each layout's row: its times at the shape where the paths launch it
     # most; the bench (phase 16) launches the two bf16 layouts most
-    rows = (("planes_bf16", "bench_tx", "bench TX and MCNC replica pass, sc bf16 planes "
+    rows = (("precoded_bf16", "bench_tx_precoded", "bench TX and MCNC replica pass, sc "
+             f"precoded bf16 [{shapes['bench_tx_precoded']['rows']}, 2048]"),
+            ("precoded_f32", "tx_precoded_f32", "main-path TX at f32 storage, sc precoded "
+             f"f32 [{shapes['tx_precoded_f32']['rows']}, 2048]"),
+            ("planes_bf16", "bench_tx", "bench TX shape, sc bf16 planes "
              f"[{shapes['bench_tx']['rows']}, 2048]"),
             ("planes_f32", "scan_sc_f32", "radiation-scan chunk, sc f32 planes [2560, 2048]"),
             ("interleaved_bf16", "bench_cnc_replica",
@@ -2246,13 +2338,14 @@ def kernels_line(paths: dict, times: dict, analysis_times: dict, smi: str) -> di
         "replaces": "mimo_ofdm_tpu/kernels/fused_pa.py:113",
         "replaces_function": "mimo_ofdm_tpu/kernels/fused_pa.py::fused_ifft_clip_fft",
         "launches": LAYOUT_LAUNCHES.get(layout, 0),
-        "max_abs_err": shapes[key]["max_abs_err"],
-        "ms": shapes[key]["ms"], "plain_ms": shapes[key]["plain_ms"],
-        "bound_ms": shapes[key]["bound_ms"], "bound_by": shapes[key]["bound_by"],
-        "library_ms": shapes[key]["library_ms"], "bound_share": shapes[key]["bound_share"],
-        "graph_ms": shapes[key]["graph_ms"], "shape": what,
+        **{f: shapes[key][f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms", "bound_share", "graph_ms")},
+        "shape": what,
         "exact_plain_ms": shapes[key].get("exact_plain_ms", shapes[key]["plain_ms"]),
         **{f: shapes[key][f] for f in ("rel_err_bf16_plain",) if f in shapes[key]},
+        # a precoded row: the time of the route it replaces, which it equals bit for bit
+        **({"eager_route_ms": shapes[key]["eager_route_ms"]} if layout in PRECODED_LAYOUTS
+           else {}),
         "shapes": {k: {f: t[f] for f in keep} for k, t in shapes.items()
                    if t["layout"] == layout},
         "card": smi} for layout, key, what in rows]}
@@ -2265,7 +2358,8 @@ def kernels_line(paths: dict, times: dict, analysis_times: dict, smi: str) -> di
                                  "library_noclip_ms", "planes_ms", "planes_graph_ms",
                                  "bound_ms", "bound_by", "bound_share", "rel_err",
                                  "max_abs_err", "launches")}})
-    missing = [k["name"] for k in kernels["kernels"] if not k["launches"]]
+    missing = [f"fused_ifft_pa_fft[{layout}]" for layout, *_ in rows
+               if not LAYOUT_LAUNCHES.get(layout, 0) and layout not in PLANES_LAYOUTS]
     if missing:
         raise AssertionError(f"layouts the paths never launched: {missing}")
     return kernels

@@ -13,15 +13,23 @@
 //          bin layout of ops/ofdm.py (DC and guard bins zero), and write back
 //          only the data bins in the same order, bin n_sc/2 last.
 //
-// Four I/O layouts; only how one point is read and written differs (struct
-// Planes, struct Interleaved), the index maps and the 1/sqrt(n) stay shared:
+// Six I/O layouts; only how one point is read and written differs (struct
+// Planes, Interleaved, Precoded), the index maps and the 1/sqrt(n) stay
+// shared:
 //   planes f32, planes bf16 : separate real and imag planes of that type;
 //   interleaved f32         : complex64, one float2 a point (the Pallas
 //                             kernel's own complex64 contract);
 //   interleaved bf16        : complex64 whose two halves are rounded to bf16
 //                             on load and on store, which gives the bits of
-//                             bf16 planes cast from and back to complex64.
-// A complex64 caller thus needs no copies into planes and back.
+//                             bf16 planes cast from and back to complex64;
+//   precoded f32, precoded bf16 (sc mode only): the single-user MRT precode
+//                             P = s o V on load, from a frame's complex64
+//                             symbols s and the planes of its precoder V,
+//                             row (b, ant) reading s[b] and V[b, ant], with
+//                             the roundings of the eager precode; the store
+//                             is that of the planes.
+// A complex64 caller thus needs no copies into planes and back, and the
+// transmitter's precoded planes are never written.
 //
 // What bounds it on an H100 (SXM, 3.35 TB/s, 67 TFLOP/s f32 without tensor
 // cores). Per canonical row (n_fft 4096, n_sc 2048, sc mode, bf16 planes) the
@@ -81,8 +89,8 @@
 // keep the CUDA-core kernel above, since bf16 operands would break their
 // 1e-5 tolerance.
 //
-// Later work (not here): fusing the precode and antenna combine around the
-// chain, and pruning the passes to the occupied bins.
+// Later work (not here): fusing the antenna combine after the chain, and
+// pruning the passes to the occupied bins.
 
 #include <atomic>
 #include <cstdint>
@@ -115,16 +123,56 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// lo into the low half, hi into the high half, each rounded to bf16
+// (nearest even, as torch casts)
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// Two bf16 lanes at once, each rounded to nearest even: a * b, a + b, a - b.
+// Explicitly .rn, so never contracted into an FMA. For bf16 operands each
+// equals the f32 operation rounded to bf16, as torch's bf16 operations
+// compute it: f32 holds 24 bits, at least 2 * 8 + 2, so rounding twice
+// gives what rounding once does.
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
 // The I/O layouts. `Elem` is the element type of the arrays the kernel is
 // handed, `kStreams` the number of arrays a side (the second is unused, and
-// null, when it is 1); load() reads point i of a row as f32 and store()
-// writes one, both before and after the shared 1/sqrt(n) scaling.
+// null, when it is 1); `Args` is what the layout reads beside those arrays
+// (a kernel argument), `at(args, row, n_io)` its part for one row; load()
+// reads point i of a row as f32 and store() writes one, both before and
+// after the shared 1/sqrt(n) scaling. A layout with kPairs gives the
+// tensor-core kernel two points at once as its bf16 A operand instead
+// (load_pair).
+struct Alone {   // a layout that reads nothing beside its arrays
+  static constexpr bool kPairs = false;
+  struct Args {};
+  static Args args(const float2*, int) { return {}; }
+  static __device__ __forceinline__ Args at(Args, long long, int) { return {}; }
+};
+
 template <typename T>
-struct Planes {   // real and imag planes of T
+struct Planes : Alone {   // real and imag planes of T
   using Elem = T;
   static constexpr int kStreams = 2;
   static __device__ __forceinline__ float2 load(const T* __restrict__ re,
-                                                const T* __restrict__ im, int i) {
+                                                const T* __restrict__ im, Args, int i) {
     return make_float2(to_f32(re[i]), to_f32(im[i]));
   }
   static __device__ __forceinline__ void store(T* __restrict__ re, T* __restrict__ im,
@@ -135,17 +183,64 @@ struct Planes {   // real and imag planes of T
 };
 
 template <bool BF16>
-struct Interleaved {   // complex64; with BF16 each half rounded to bf16 both ways
+struct Interleaved : Alone {   // complex64; with BF16 each half rounded to bf16 both ways
   using Elem = float2;
   static constexpr int kStreams = 1;
   static __device__ __forceinline__ float2 load(const float2* __restrict__ x,
-                                                const float2*, int i) {
+                                                const float2*, Args, int i) {
     const float2 v = x[i];
     return BF16 ? make_float2(bf16_round(v.x), bf16_round(v.y)) : v;
   }
   static __device__ __forceinline__ void store(float2* __restrict__ x, float2*, int i,
                                                float2 v) {
     x[i] = BF16 ? make_float2(bf16_round(v.x), bf16_round(v.y)) : v;
+  }
+};
+
+// The MRT precode of the transmitter as the load: the arrays are the planes
+// of the precoder V [frames x n_ant rows, n_io] in T, `Args` the frames'
+// complex64 symbols s [frames, n_io] and n_ant; row r reads s[r / n_ant],
+// which its n_ant rows share from L2. Point i gives s o V exactly as the
+// eager precode stores it (kernels/fused_pa.py::precode_planes): s's halves
+// cast to T, then each product, difference and sum one operation of T
+// rounded to nearest, never contracted into an FMA. In f32 that is load();
+// the bf16 planes run on the tensor cores, which take two points at once
+// (load_pair).
+template <typename T>
+struct Precoded : Planes<T> {
+  static constexpr bool kPairs = std::is_same_v<T, __nv_bfloat16>;
+  struct Args {
+    const float2* s;
+    int n_ant;
+  };
+  static Args args(const float2* s, int n_ant) { return {s, n_ant}; }
+  static __device__ __forceinline__ const float2* at(Args a, long long row, int n_io) {
+    return a.s + static_cast<size_t>(static_cast<int>(row) / a.n_ant) * n_io;
+  }
+  static __device__ __forceinline__ float2 load(const T* __restrict__ vr,
+                                                const T* __restrict__ vi,
+                                                const float2* __restrict__ s, int i) {
+    static_assert(std::is_same_v<T, float>, "bf16 planes take load_pair");
+    const float2 x = __ldg(s + i);
+    return make_float2(__fsub_rn(__fmul_rn(x.x, vr[i]), __fmul_rn(x.y, vi[i])),
+                       __fadd_rn(__fmul_rn(x.x, vi[i]), __fmul_rn(x.y, vr[i])));
+  }
+  // bf16: points a and b (-1: none, which reads 0) as the low and high
+  // halves of the real and imag bf16x2 operands of a tile, s's halves
+  // rounded to bf16 (pack) and each operation in bf16x2
+  static __device__ __forceinline__ void load_pair(const T* __restrict__ vr,
+                                                   const T* __restrict__ vi,
+                                                   const float2* __restrict__ s, int a,
+                                                   int b, uint32_t& re, uint32_t& im) {
+    const auto* __restrict__ hr = reinterpret_cast<const unsigned short*>(vr);
+    const auto* __restrict__ hi = reinterpret_cast<const unsigned short*>(vi);
+    const float2 zero = make_float2(0.0f, 0.0f);
+    const float2 sa = a >= 0 ? __ldg(s + a) : zero, sb = b >= 0 ? __ldg(s + b) : zero;
+    const uint32_t v_r = (a >= 0 ? hr[a] : 0u) | (b >= 0 ? hr[b] : 0u) << 16;
+    const uint32_t v_i = (a >= 0 ? hi[a] : 0u) | (b >= 0 ? hi[b] : 0u) << 16;
+    const uint32_t sr = pack(sa.x, sb.x), si = pack(sa.y, sb.y);
+    re = sub_bf16x2(mul_bf16x2(sr, v_r), mul_bf16x2(si, v_i));
+    im = add_bf16x2(mul_bf16x2(sr, v_i), mul_bf16x2(si, v_r));
   }
 };
 
@@ -333,7 +428,7 @@ fused_ifft_pa_fft_kernel(const typename IO::Elem* __restrict__ xr,
                          const float* __restrict__ coeff,
                          const float2* __restrict__ tw, int rows, int n_io,
                          int pa_model, float rapp_p, float rapp_exp,
-                         float norm, int ahead) {
+                         float norm, int ahead, typename IO::Args io_args) {
   using T = typename IO::Elem;
   constexpr bool kTwo = IO::kStreams == 2;
   constexpr int N = 1 << LOG2N;
@@ -378,13 +473,14 @@ fused_ifft_pa_fft_kernel(const typename IO::Elem* __restrict__ xr,
   // load, with the IFFT's 1/sqrt(n) folded in
   const T* __restrict__ rr = xr + off;
   const T* __restrict__ ri = kTwo ? xi + off : nullptr;
+  const auto at = IO::at(io_args, live ? row : 0, n_io);
 #pragma unroll
   for (int j = 0; j < kPoints; ++j) {
     const int p = t + TPR * j;
     v[j] = make_float2(0.0f, 0.0f);
     const int src = !SC ? p : (p >= 1 && p <= h) ? h + p - 1 : (p >= N - h ? p - (N - h) : -1);
     if (live && src >= 0) {
-      const float2 u = IO::load(rr, ri, src);
+      const float2 u = IO::load(rr, ri, at, src);
       v[j] = make_float2(u.x * norm, u.y * norm);
     }
   }
@@ -508,7 +604,13 @@ fused_ifft_pa_fft_kernel(const typename IO::Elem* __restrict__ xr,
 //   * Loads and stores go between device memory and the operand or
 //     accumulator registers directly (a warp touches 4 runs of 8
 //     consecutive bins per register), with the sc maps and the L2 prefetch
-//     of the kernel above.
+//     of the kernel above. The precoded layout forms each operand register
+//     (two points) from the symbols and V by bf16x2 products and a
+//     difference or sum (Precoded::load_pair): 0.94 ms at [32768, 2048]
+//     against the planes' 0.79, most of the difference the symbols' 8 B a
+//     point from L2, and 1.80 for the eager precode and the planes' launch
+//     it replaces; the same precode in f32 a point took 1.31 ms (NVIDIA
+//     H100 80GB HBM3, 700 W).
 //   * Twiddles and the DFT matrices' B fragments come from one host-built
 //     table (kernels/fused_pa.py::tensor_kernel_table) laid out in the
 //     order a warp's lanes read it, 256 contiguous bytes a load; a table
@@ -546,14 +648,6 @@ struct Acc {
 struct Mat {
   uint32_t c[2][2], s[2][2], ns[2][2];
 };
-
-// lo into the low half, hi into the high half, each rounded to bf16
-// (nearest even, as torch casts)
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
 
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
                                     const uint32_t (&b)[2]) {
@@ -746,7 +840,8 @@ fused_ifft_pa_fft_tc_kernel(const typename IO::Elem* __restrict__ xr,
                             const float* __restrict__ coeff,
                             const float2* __restrict__ tw, int rows, int n_io,
                             int pa_model, float rapp_p, float rapp_exp,
-                            float /* norm: in the twiddle table */, int ahead) {
+                            float /* norm: in the twiddle table */, int ahead,
+                            typename IO::Args io_args) {
   using namespace tc;
   using T = typename IO::Elem;
   constexpr bool kTwo = IO::kStreams == 2;
@@ -808,17 +903,28 @@ fused_ifft_pa_fft_tc_kernel(const typename IO::Elem* __restrict__ xr,
     const size_t off = live[i] ? static_cast<size_t>(row[i]) * n_io : 0;
     const T* __restrict__ rr = xr + off;
     const T* __restrict__ ri = kTwo ? xi + off : nullptr;
+    const auto at = IO::at(io_args, live[i] ? row[i] : 0, n_io);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      float2 v[2];
+      if constexpr (IO::kPairs) {
+        int src[2];
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int p = 16 * tau[i] + g + 8 * (r & 1) + TPR * (2 * q + 8 * (r >> 1) + e);
-        const int src = io_index<SC, N>(p, h);
-        v[e] = live[i] && src >= 0 ? IO::load(rr, ri, src) : make_float2(0.0f, 0.0f);
+        for (int e = 0; e < 2; ++e) {
+          const int p = 16 * tau[i] + g + 8 * (r & 1) + TPR * (2 * q + 8 * (r >> 1) + e);
+          src[e] = live[i] ? io_index<SC, N>(p, h) : -1;
+        }
+        IO::load_pair(rr, ri, at, src[0], src[1], x[i].re[r], x[i].im[r]);
+      } else {
+        float2 v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int p = 16 * tau[i] + g + 8 * (r & 1) + TPR * (2 * q + 8 * (r >> 1) + e);
+          const int src = io_index<SC, N>(p, h);
+          v[e] = live[i] && src >= 0 ? IO::load(rr, ri, at, src) : make_float2(0.0f, 0.0f);
+        }
+        x[i].re[r] = pack(v[0].x, v[1].x);
+        x[i].im[r] = pack(v[0].y, v[1].y);
       }
-      x[i].re[r] = pack(v[0].x, v[1].x);
-      x[i].im[r] = pack(v[0].y, v[1].y);
     }
   }
 
@@ -907,6 +1013,7 @@ fused_ifft_pa_fft_tc_kernel(const typename IO::Elem* __restrict__ xr,
 template <typename IO> struct TensorCores : std::false_type {};
 template <> struct TensorCores<Planes<__nv_bfloat16>> : std::true_type {};
 template <> struct TensorCores<Interleaved<true>> : std::true_type {};
+template <> struct TensorCores<Precoded<__nv_bfloat16>> : std::true_type {};
 
 template <int LOG2N, bool SC, typename IO>
 struct Instance {
@@ -950,7 +1057,8 @@ struct LaunchArgs {
   void *outr, *outi;
   const float *sat, *coeff;
   const float2* tw;
-  int rows, n_io, pa_model;
+  const float2* sym;   // the precoded layouts' symbols, else null
+  int n_ant, rows, n_io, pa_model;
   float rapp_p, rapp_exp, norm;
   cudaStream_t stream;
 
@@ -965,7 +1073,7 @@ struct LaunchArgs {
     kern<<<blocks, kThreads, I::kSmem, stream>>>(
         static_cast<const T*>(xr), static_cast<const T*>(xi),
         static_cast<T*>(outr), static_cast<T*>(outi), sat, coeff, tw, rows, n_io,
-        pa_model, rapp_p, rapp_exp, norm, resident);
+        pa_model, rapp_p, rapp_exp, norm, resident, IO::args(sym, n_ant));
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -1014,23 +1122,36 @@ int by_mode(const Op& op, int log2n, int sc_mode) {
   return sc_mode ? by_size<true, IO>(op, log2n) : by_size<false, IO>(op, log2n);
 }
 
-// 5 sizes x 2 modes x 4 layouts: 40 instantiations, the 20 of the bf16
-// layouts on the tensor cores
+enum Io { kPlanes = 0, kInterleaved = 1, kPrecoded = 2 };
+
+// 5 sizes x 2 modes x 4 layouts, and 5 sizes of the 2 precoded layouts in sc
+// mode: 50 instantiations, the 25 of the bf16 layouts on the tensor cores
 template <typename Op>
-int dispatch(const Op& op, int log2n, int sc_mode, int bf16, int interleaved) {
-  if (interleaved)
-    return bf16 ? by_mode<Interleaved<true>>(op, log2n, sc_mode)
-                : by_mode<Interleaved<false>>(op, log2n, sc_mode);
-  return bf16 ? by_mode<Planes<__nv_bfloat16>>(op, log2n, sc_mode)
-              : by_mode<Planes<float>>(op, log2n, sc_mode);
+int dispatch(const Op& op, int log2n, int sc_mode, int bf16, int io) {
+  switch (io) {
+    case kPlanes:
+      return bf16 ? by_mode<Planes<__nv_bfloat16>>(op, log2n, sc_mode)
+                  : by_mode<Planes<float>>(op, log2n, sc_mode);
+    case kInterleaved:
+      return bf16 ? by_mode<Interleaved<true>>(op, log2n, sc_mode)
+                  : by_mode<Interleaved<false>>(op, log2n, sc_mode);
+    case kPrecoded:   // the subcarrier chain's prologue: sc mode only
+      if (!sc_mode) return static_cast<int>(cudaErrorInvalidValue);
+      return bf16 ? by_size<true, Precoded<__nv_bfloat16>>(op, log2n)
+                  : by_size<true, Precoded<float>>(op, log2n);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. Pointers are device pointers of contiguous
-// tensors: real and imag planes (float or bf16 by `bf16`), or with
-// `interleaved` one complex64 array a side in xr/outr (xi, outi null), its
-// halves rounded to bf16 on load and store when `bf16` is set. `tw` is
+// tensors. `io` names the layout (enum Io): real and imag planes (float or
+// bf16 by `bf16`); one complex64 array a side in xr/outr (xi, outi null),
+// its halves rounded to bf16 on load and store when `bf16` is set; or, sc
+// mode only, the planes of the precoder V in xr/xi and the frames'
+// complex64 symbols in `sym`, n_ant rows a frame, and output planes. `tw` is
 // kernels/fused_pa.py::twiddle_table(n_fft) on the device for the f32
 // layouts, tensor_kernel_table(n_fft) for the bf16 ones; `stream` is the
 // cudaStream_t of the caller's current stream. Returns cudaGetLastError()
@@ -1038,23 +1159,26 @@ int dispatch(const Op& op, int log2n, int sc_mode, int bf16, int interleaved) {
 extern "C" int fused_ifft_pa_fft_launch(const void* xr, const void* xi,
                                         void* outr, void* outi,
                                         const float* sat, const float* coeff,
-                                        const void* tw, int rows, int log2n,
-                                        int n_io, int sc_mode, int bf16,
-                                        int interleaved, int pa_model,
+                                        const void* tw, const void* sym, int n_ant,
+                                        int rows, int log2n, int n_io, int sc_mode,
+                                        int bf16, int io, int pa_model,
                                         float rapp_p, float rapp_exp,
                                         float norm, void* stream) {
   if (rows <= 0) return 0;
+  if (io == kPrecoded && (sym == nullptr || n_ant <= 0 || rows % n_ant))
+    return static_cast<int>(cudaErrorInvalidValue);
   const LaunchArgs args{xr, xi, outr, outi, sat, coeff,
-                        static_cast<const float2*>(tw), rows, n_io, pa_model,
-                        rapp_p, rapp_exp, norm, static_cast<cudaStream_t>(stream)};
-  return dispatch(args, log2n, sc_mode, bf16, interleaved);
+                        static_cast<const float2*>(tw), static_cast<const float2*>(sym),
+                        n_ant, rows, n_io, pa_model, rapp_p, rapp_exp, norm,
+                        static_cast<cudaStream_t>(stream)};
+  return dispatch(args, log2n, sc_mode, bf16, io);
 }
 
 // Resources of one instantiation, written to out[0..5]: registers a thread,
 // local memory bytes a thread, static and dynamic shared memory bytes a
 // block, resident blocks per SM, and 1 if it runs on the tensor cores.
 // Returns a CUDA error code (0 on success).
-extern "C" int fused_ifft_pa_fft_attributes(int log2n, int sc_mode, int bf16,
-                                            int interleaved, int* out) {
-  return dispatch(AttributesArgs{out}, log2n, sc_mode, bf16, interleaved);
+extern "C" int fused_ifft_pa_fft_attributes(int log2n, int sc_mode, int bf16, int io,
+                                            int* out) {
+  return dispatch(AttributesArgs{out}, log2n, sc_mode, bf16, io);
 }

@@ -25,6 +25,13 @@ it is (no planes): ``storage="bfloat16"`` rounds each half to bf16 on the
 way in and out, and so gives the bits of bf16 planes cast from and back to
 complex64. :func:`fused_ifft_clip_fft` is its ``full`` mode at float32.
 
+:func:`fused_precoded_ifft_pa_fft` is the ``sc`` chain of the single-user
+transmitter with its MRT precode as the kernel's load: it takes the frames'
+complex64 symbols ``s [..., n_sc]`` and the precoder's planes ``V [...,
+n_ant, n_sc]`` and gives the chain's output planes for ``s o V`` (the
+precoded layouts), bit for bit what :func:`precode_planes` followed by
+:func:`fused_ifft_pa_fft` gives, without writing the precoded planes.
+
 For a CUDA tensor the wrappers launch the kernel (built with ``nvcc`` at
 first use into ``mimo_ofdm_tpu_torch/_build/`` and loaded with ``ctypes``)
 or raise. For a CPU tensor they run the layout's plain version:
@@ -69,9 +76,12 @@ from mimo_ofdm_tpu_torch.utils.spans import spanned
 
 MODES = ("full", "sc")
 STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# the kernel's I/O layouts: name -> (interleaved complex64, bf16 rounding)
-LAYOUTS = {"planes_f32": (False, False), "planes_bf16": (False, True),
-           "interleaved_f32": (True, False), "interleaved_bf16": (True, True)}
+# the kernel's I/O layouts: name -> (how a point is read and written, bf16
+# rounding); the kinds in the kernel's order (csrc/fused_pa.cu, enum Io)
+IO_KINDS = ("planes", "interleaved", "precoded")
+LAYOUTS = {"planes_f32": ("planes", False), "planes_bf16": ("planes", True),
+           "interleaved_f32": ("interleaved", False), "interleaved_bf16": ("interleaved", True),
+           "precoded_f32": ("precoded", False), "precoded_bf16": ("precoded", True)}
 N = 4096             # the one length fused_ifft_clip_fft takes, as the TPU kernel
 N_FFT_RANGE = (256, 4096)
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -175,8 +185,8 @@ def build_library() -> tuple[ctypes.CDLL, str]:
     lib = ctypes.CDLL(str(so))
     fn = lib.fused_ifft_pa_fft_launch
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, cf,
-                   cf, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf,
+                   cf, cf, vp]
     fn.restype = ci
     attrs = lib.fused_ifft_pa_fft_attributes
     attrs.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
@@ -186,8 +196,9 @@ def build_library() -> tuple[ctypes.CDLL, str]:
 
 
 def kernel_resources() -> list[dict]:
-    """Every instantiation's resources (each size, mode and I/O layout), as
-    the runtime reads them from the loaded kernel on the current card:
+    """Every instantiation's resources (each size, mode and I/O layout; the
+    precoded layouts in ``sc`` mode only), as the runtime reads them from
+    the loaded kernel on the current card:
     registers, local memory (non-zero when ptxas spills), shared memory,
     resident blocks per SM, whether it is the tensor-core kernel, and the
     tensor-core instructions (``HMMA``, ``HGMMA``) in its SASS."""
@@ -196,10 +207,12 @@ def kernel_resources() -> list[dict]:
     rows = []
     for log2n in range(N_FFT_RANGE[0].bit_length() - 1, N_FFT_RANGE[1].bit_length()):
         for mode in MODES:
-            for layout, (interleaved, bf16) in LAYOUTS.items():
+            for layout, (io, bf16) in LAYOUTS.items():
+                if io == "precoded" and mode != "sc":
+                    continue
                 buf = (ctypes.c_int * 6)()
                 err = lib.fused_ifft_pa_fft_attributes(
-                    log2n, int(mode == "sc"), int(bf16), int(interleaved), buf)
+                    log2n, int(mode == "sc"), int(bf16), IO_KINDS.index(io), buf)
                 if err:
                     raise RuntimeError(f"fused_ifft_pa_fft_attributes: CUDA error {err}")
                 rows.append({"n_fft": 1 << log2n, "mode": mode, "layout": layout,
@@ -213,7 +226,7 @@ def kernel_resources() -> list[dict]:
 
 # a kernel's mangled name: the kernel, <LOG2N, SC, IO>
 _MANGLED = re.compile(r"(fused_ifft_pa_fft(?:_tc)?_kernel)ILi(\d+)ELb([01])E"
-                      r"NS_(?:6PlanesI(f|13__nv_bfloat16)E|11InterleavedILb([01])EE)")
+                      r"NS_(?:(6Planes|8Precoded)I(f|13__nv_bfloat16)E|11InterleavedILb([01])EE)")
 
 
 def sass_mma_counts() -> dict:
@@ -229,8 +242,8 @@ def sass_mma_counts() -> dict:
         m = _MANGLED.search(part.split("\n", 1)[0])
         if m is None:
             continue
-        _, log2n, sc, plane, inter = m.groups()
-        layout = (f"planes_{'f32' if plane == 'f' else 'bf16'}" if plane
+        _, log2n, sc, kind, plane, inter = m.groups()
+        layout = (f"{kind[1:].lower()}_{'f32' if plane == 'f' else 'bf16'}" if plane
                   else f"interleaved_{'bf16' if inter == '1' else 'f32'}")
         key = (1 << int(log2n), "sc" if sc == "1" else "full", layout)
         out[key] = len(re.findall(r"\bH(?:G)?MMA\b", part))
@@ -674,25 +687,30 @@ def _plain_version(dtype: torch.dtype):
     return fused_ifft_pa_fft_bf16 if dtype == torch.bfloat16 else fused_ifft_pa_fft_plain
 
 
-def _launch(ins, outs, n_io, sat, coeff, pa_model, n_fft, mode, rapp_p, layout):
+def _launch(ins, outs, n_io, sat, coeff, pa_model, n_fft, mode, rapp_p, layout,
+            sym=None, n_ant=0):
     """One launch on contiguous CUDA tensors: ``ins``/``outs`` are the real
     and imag planes, or one ``view_as_real`` of complex64 each in the
-    interleaved layouts; counted under ``layout``. The bf16 layouts run the
-    tensor-core kernel, with :func:`tensor_kernel_table`."""
-    interleaved, bf16 = LAYOUTS[layout]
-    for name, t in (*zip(("xr", "xi"), ins), ("sat", sat), ("cubic_coeff", coeff)):
+    interleaved layouts; the precoded layouts read the precoder's planes as
+    ``ins`` and the symbols ``sym`` (a ``view_as_real`` of complex64, one
+    row of it for each ``n_ant`` rows); counted under ``layout``. The bf16
+    layouts run the tensor-core kernel, with :func:`tensor_kernel_table`."""
+    io, bf16 = LAYOUTS[layout]
+    named = (*zip(("xr", "xi"), ins), ("sat", sat), ("cubic_coeff", coeff))
+    for name, t in (*named, *((("sym", sym),) if sym is not None else ())):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     lib, _ = build_library()
     ptrs = [t.data_ptr() for t in (*ins, *outs)]
-    if interleaved:      # one array a side: no imag plane
+    if io == "interleaved":      # one array a side: no imag plane
         ptrs = [ptrs[0], None, ptrs[1], None]
     device = ins[0].device
     tw = _twiddles(n_fft, device, bf16)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.fused_ifft_pa_fft_launch(
-        *ptrs, sat.data_ptr(), coeff.data_ptr(), tw.data_ptr(), sat.numel(),
-        n_fft.bit_length() - 1, n_io, int(mode == "sc"), int(bf16), int(interleaved),
+        *ptrs, sat.data_ptr(), coeff.data_ptr(), tw.data_ptr(),
+        None if sym is None else sym.data_ptr(), n_ant, sat.numel(),
+        n_fft.bit_length() - 1, n_io, int(mode == "sc"), int(bf16), IO_KINDS.index(io),
         PA_MODELS.index(pa_model), float(rapp_p), -1.0 / (2.0 * rapp_p),
         1.0 / math.sqrt(n_fft), stream)
     if err:
@@ -769,6 +787,61 @@ def fused_ifft_pa_fft_complex(x: torch.Tensor, sat, cubic_coeff=0.0, *,
             pa_model, n_fft, mode, rapp_p,
             "interleaved_bf16" if st == torch.bfloat16 else "interleaved_f32")
     return out
+
+
+def precode_planes(sym: torch.Tensor, vr: torch.Tensor, vi: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The single-user MRT precode ``s o V`` in the planes' dtype: symbols
+    ``sym [..., n_sc]`` (complex), precoder planes ``vr``/``vi [..., n_ant,
+    n_sc]``; ``s``'s halves cast to the planes' dtype, and each product,
+    difference and sum a plane operation of that dtype, as the eager
+    transmitter computes it (``reference/modulation.py:373``)."""
+    sr = sym.real.to(vr.dtype)[..., None, :]
+    si = sym.imag.to(vr.dtype)[..., None, :]
+    return sr * vr - si * vi, sr * vi + si * vr
+
+
+def fused_precoded_ifft_pa_fft(sym: torch.Tensor, vr: torch.Tensor, vi: torch.Tensor,
+                               sat, cubic_coeff=0.0, *, pa_model: str = "softlim",
+                               n_fft: int, rapp_p: float = 1.1
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``extract_sc(FFT(PA(IFFT(map_sc(s o V)))))`` for each frame's antenna
+    rows: complex64 symbols ``sym [..., n_sc]`` (any strides), the
+    precoder's contiguous planes ``vr``/``vi [..., n_ant, n_sc]`` (float32 or
+    bfloat16), ``sat``/``cubic_coeff`` broadcast to ``[..., n_ant]``. Returns
+    output planes of ``vr``'s shape and dtype: bit for bit
+    :func:`fused_ifft_pa_fft` of :func:`precode_planes`, in one launch of a
+    precoded layout (counted in ``fused_ifft_pa_fft.launches``) that reads
+    ``s`` and ``V`` and never writes the precoded planes. A CPU tensor (or
+    ``force_plain``) runs the precode and then the planes' plain version."""
+    if vr.shape != vi.shape or vr.dtype != vi.dtype or vr.device != vi.device:
+        raise ValueError("vr and vi must share shape, dtype and device")
+    if vr.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"planes must be float32 or bfloat16, got {vr.dtype}")
+    if sym.dtype != torch.complex64:
+        raise ValueError(f"sym must be complex64, got {sym.dtype}")
+    if vr.ndim < 2 or sym.shape != vr.shape[:-2] + vr.shape[-1:]:
+        raise ValueError(f"sym {tuple(sym.shape)} does not match planes "
+                         f"{tuple(vr.shape)} [..., n_ant, n_sc]")
+    if sym.device != vr.device:
+        raise ValueError("sym and the planes must share a device")
+    _check_call(pa_model, n_fft, vr.shape[-1], "sc", vr.device)
+    lead = vr.shape[:-1]
+    sat = _row_param(sat, lead, vr.device)
+    coeff = _row_param(cubic_coeff, lead, vr.device)
+    if vr.numel() == 0:
+        return torch.empty_like(vr), torch.empty_like(vi)
+    if vr.device.type == "cpu" or fused_ifft_pa_fft.force_plain:
+        pr, pi = precode_planes(sym, vr, vi)
+        return _plain_version(vr.dtype)(pr, pi, sat, coeff, pa_model=pa_model,
+                                        n_fft=n_fft, mode="sc", rapp_p=rapp_p)
+    # one float2 array: no lazy conjugate or negative, no strides
+    sym = sym.resolve_conj().resolve_neg().contiguous()
+    outr, outi = torch.empty_like(vr), torch.empty_like(vi)
+    _launch((vr, vi), (outr, outi), vr.shape[-1], sat, coeff, pa_model, n_fft, "sc",
+            rapp_p, "precoded_bf16" if vr.dtype == torch.bfloat16 else "precoded_f32",
+            sym=torch.view_as_real(sym), n_ant=vr.shape[-2])
+    return outr, outi
 
 
 def fused_ifft_clip_fft(x_fd: torch.Tensor, sat_power) -> torch.Tensor:

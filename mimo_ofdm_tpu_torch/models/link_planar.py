@@ -14,9 +14,10 @@ per-antenna gains ``[B, n_ant]``.
   small cos/sin tables per antenna and one angle-addition pass, instead of
   a sin and a cos per antenna and subcarrier.
 * The distorted TX, and the MCNC replica on every pass, run
-  ``extract_sc(FFT(PA(IFFT(map_sc(.)))))`` over all ``B x n_ant`` rows in one
-  launch of the fused CUDA kernel (``kernels/fused_pa.py``); the CNC
-  replica runs it over ``B`` rows.
+  ``extract_sc(FFT(PA(IFFT(map_sc(s o V)))))`` over all ``B x n_ant`` rows in
+  one launch of the fused CUDA kernel (``kernels/fused_pa.py``), whose load
+  computes the MRT precode ``s o V`` from the symbols and the precoder's
+  planes; the CNC replica runs the chain over ``B`` rows.
 
 Randoms: JAX's threefry stream cannot be reproduced, so a frame takes its
 randoms as a :class:`FrameDraws` -- drawn from a ``torch.Generator`` on the
@@ -44,7 +45,7 @@ from mimo_ofdm_tpu_torch.models.precoding import per_antenna_alpha
 from mimo_ofdm_tpu_torch.ops import bits as bits_ops
 from mimo_ofdm_tpu_torch.ops import noise as noise_ops
 from mimo_ofdm_tpu_torch.ops import ofdm, pa
-from mimo_ofdm_tpu_torch.ops.fused_chain import (fused_sc_ifft_pa_fft_planar_io,
+from mimo_ofdm_tpu_torch.ops.fused_chain import (fused_sc_precoded_ifft_pa_fft_planar_io,
                                                  kernel_eligible, storage_dtype)
 from mimo_ofdm_tpu_torch.utils.config import LinkConfig
 from mimo_ofdm_tpu_torch.utils.device import resolve_device
@@ -282,17 +283,16 @@ def _build_planar_frame_fn(cfg: LinkConfig, n_iters: int, incl_clean: bool,
         # distorted run (reference/mp_model.py:180-222), all planar
         def tx_propagate(sym: torch.Tensor) -> torch.Tensor:
             """Precode -> fused IFFT/PA/FFT over B x n_ant rows -> channel
-            combine, for ``[B, n_sc]`` complex symbols; shared by the
+            combine, for ``[B, n_sc]`` complex64 symbols; shared by the
             distorted TX and the MCNC replica
-            (``reference/corrector.py:198-205``)."""
+            (``reference/corrector.py:198-205``). The precode ``s o V`` runs
+            in the kernel's load; the precoded planes are never written."""
             with span("tx.precode"):
-                sr = sym.real.to(st)[:, None, :]
-                si = sym.imag.to(st)[:, None, :]
-                pr = sr * vr - si * vi                   # [B, n_ant, n_sc] st
-                pi_ = sr * vi + si * vr
-            with span("chain", rows=pr.shape[0] * pr.shape[1]) if enabled() else OFF:
-                fr, fi = fused_sc_ifft_pa_fft_planar_io(
-                    pr, pi_, n_fft, pa_model=pa_model, sat=sat_pow[:, None],
+                s = sym.contiguous()
+            rows = vr.shape[0] * vr.shape[1]
+            with span("chain", rows=rows, precoded=rows) if enabled() else OFF:
+                fr, fi = fused_sc_precoded_ifft_pa_fft_planar_io(
+                    s, vr, vi, n_fft, pa_model=pa_model, sat=sat_pow[:, None],
                     cubic_coeff=toi_coeff[:, None], rapp_p=cfg.pa.rapp_p_hardness,
                     storage=storage)
             # propagate: sum_ant H o X (reference/channel.py:74-89), f32 accum

@@ -11,6 +11,7 @@ skips ``tests/conftest.py``, which imports JAX):
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -218,6 +219,38 @@ def test_bf16_instantiations_run_on_the_tensor_cores(cuda):
             assert not r["tensor_cores"] and r["sass_mma"] == 0, r
 
 
+# Registers a thread of each instantiation of the layouts that the precoded
+# ones came beside, at n_fft 256, 512, 1024, 2048, 4096, as the runtime read
+# them before those came (NVIDIA H100 80GB HBM3, the card machine's nvcc).
+# Every one has no static shared memory and the dynamic shared memory of
+# its kernel: 32 KB on the tensor cores (bf16), 64 KB on the CUDA cores.
+EXISTING_REGISTERS = {
+    ("interleaved_bf16", "full"): (80, 118, 123, 123, 120),
+    ("interleaved_bf16", "sc"): (117, 126, 126, 128, 124),
+    ("interleaved_f32", "full"): (96, 115, 115, 96, 113),
+    ("interleaved_f32", "sc"): (112, 127, 128, 123, 125),
+    ("planes_bf16", "full"): (81, 118, 122, 122, 120),
+    ("planes_bf16", "sc"): (118, 126, 124, 124, 126),
+    ("planes_f32", "full"): (96, 116, 124, 96, 112),
+    ("planes_f32", "sc"): (112, 127, 128, 123, 125),
+}
+
+
+def test_existing_layouts_keep_their_resources(cuda):
+    """The precoded layouts leave what the other layouts' callers run as it
+    was: the same registers and shared memory in every instantiation of
+    the planes and interleaved layouts."""
+    got = {}
+    for r in fused_pa.kernel_resources():
+        if r["layout"].startswith("precoded"):
+            assert r["mode"] == "sc", r
+            continue
+        smem = 32768 if r["layout"].endswith("bf16") else 65536
+        assert (r["static_smem_bytes"], r["dynamic_smem_bytes"]) == (0, smem), r
+        got.setdefault((r["layout"], r["mode"]), []).append((r["n_fft"], r["registers"]))
+    assert {k: tuple(n for _, n in sorted(v)) for k, v in got.items()} == EXISTING_REGISTERS
+
+
 def test_rejects_non_contiguous(cuda):
     x = torch.zeros(4, 1024, device=cuda)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
@@ -329,21 +362,110 @@ def test_interleaved_views(cuda):
         assert torch.equal(_bits(got), _bits(want))
 
 
+# --- the precoded layouts (fused_precoded_ifft_pa_fft) ------------------------
+
+PRECODED_STORAGES = {"float32": (torch.float32, torch.int32),
+                     "bfloat16": (torch.bfloat16, torch.int16)}
+
+
+def _precoded_and_eager(sym, vr, vi, sat, coeff, **kw):
+    """The precoded layout's output planes, then the transmitter's chain as
+    it ran before them on the same inputs: the precode as eager plane
+    operations of the storage dtype, then the planes' layout; one launch of
+    each. Both as their raw bits."""
+    st, bits = PRECODED_STORAGES["bfloat16" if vr.dtype == torch.bfloat16 else "float32"]
+    layout = f"precoded_{'bf16' if st == torch.bfloat16 else 'f32'}"
+    before, by_layout = KERNEL.launches, KERNEL.launches_by_layout[layout]
+    got = fused_pa.fused_precoded_ifft_pa_fft(sym, vr, vi, sat, coeff, **kw)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    assert KERNEL.launches_by_layout[layout] == by_layout + 1
+    s = sym.resolve_conj().contiguous()
+    sr, si = s.real.to(st)[..., None, :], s.imag.to(st)[..., None, :]
+    want = KERNEL(sr * vr - si * vi, sr * vi + si * vr, sat, coeff, mode="sc", **kw)
+    return [t.view(bits) for t in got], [t.view(bits) for t in want]
+
+
+def _precoder(g, frames, n_ant, n_sc, st, device):
+    v = torch.randn(2, frames, n_ant, n_sc, generator=g, device=device) / math.sqrt(n_ant)
+    return v[0].to(st), v[1].to(st)
+
+
+@pytest.mark.parametrize("frames,n_ant", [(6, 64), (37, 8), (5, 3), (9, 1)])
+@pytest.mark.parametrize("n_fft,n_sc", [(4096, 2048), (1024, 512)])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_precoded_layout_equals_eager_precode_and_kernel(cuda, storage, n_fft, n_sc,
+                                                         frames, n_ant):
+    """Bit for bit the eager precode followed by the planes' layout, in both
+    storages: 64 and 8 antennas, 15 rows (a ragged last block wherever a
+    block holds more than one row) and one row a frame."""
+    st, _ = PRECODED_STORAGES[storage]
+    g = torch.Generator(device=cuda).manual_seed(n_fft + frames * n_ant + len(storage))
+    sym = _cplx(g, frames, n_sc, cuda)
+    vr, vi = _precoder(g, frames, n_ant, n_sc, st, cuda)
+    sat = (torch.rand(frames, 1, generator=g, device=cuda) + 0.2) * 0.5
+    got, want = _precoded_and_eager(sym, vr, vi, sat, 0.0, pa_model="softlim", n_fft=n_fft)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("model", ["none", "rapp", "toi"])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_precoded_layout_other_pa_models(cuda, storage, model):
+    st, _ = PRECODED_STORAGES[storage]
+    g = torch.Generator(device=cuda).manual_seed(41 + len(model))
+    sym = _cplx(g, 4, 1024, cuda)
+    vr, vi = _precoder(g, 4, 16, 1024, st, cuda)
+    sat = torch.rand(4, 16, generator=g, device=cuda) * 0.2 + 0.05
+    coeff = torch.rand(4, 16, generator=g, device=cuda) * 0.5
+    got, want = _precoded_and_eager(sym, vr, vi, sat, coeff, pa_model=model, n_fft=2048)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_precoded_layout_takes_symbol_views(cuda, storage):
+    """A strided and a lazily conjugated view of the symbols give the bits
+    of their contiguous copies; zero frames launch nothing."""
+    st, _ = PRECODED_STORAGES[storage]
+    g = torch.Generator(device=cuda).manual_seed(43)
+    vr, vi = _precoder(g, 8, 8, 512, st, cuda)
+    strided = _cplx(g, 512, 16, cuda).T[::2]
+    assert not strided.is_contiguous()
+    for view in (strided, _cplx(g, 8, 512, cuda).conj()):
+        got, want = _precoded_and_eager(view, vr, vi, 0.3, 0.0, pa_model="softlim",
+                                        n_fft=1024)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    before = KERNEL.launches
+    out = fused_pa.fused_precoded_ifft_pa_fft(strided[:0], vr[:0], vi[:0], 0.3, n_fft=1024)
+    assert out[0].shape == (0, 8, 512) and KERNEL.launches == before
+
+
 def test_chain_calls_launch_only_the_kernel(cuda):
     """The complex-ended chain calls and fused_ifft_clip_fft run the fused
-    kernel once on complex64, in its interleaved layout, and nothing else
-    but the fill of a scalar saturation power: no plane copies."""
+    kernel once on complex64, in its interleaved layout, and the precoded
+    chain call runs it once on the symbols and the precoder's planes, and
+    nothing else but the fill of a scalar saturation power: no plane copies,
+    no precode."""
     from mimo_ofdm_tpu_torch.ops import fused_chain
     g = torch.Generator(device=cuda).manual_seed(19)
     sat = torch.rand(64, generator=g, device=cuda) + 0.2
     coeff = torch.zeros(64, device=cuda)
     d, f = _cplx(g, 64, 2048, cuda), _cplx(g, 64, 4096, cuda)
+    sym, v = _cplx(g, 8, 2048, cuda), torch.randn(2, 8, 8, 2048, generator=g, device=cuda)
+    vb = v.bfloat16()
+
+    def precoded(vr, vi, storage):
+        return fused_chain.fused_sc_precoded_ifft_pa_fft_planar_io(
+            sym, vr, vi, 4096, pa_model="softlim", sat=sat.reshape(8, 8),
+            cubic_coeff=coeff.reshape(8, 8), storage=storage)
+
     calls = {
         "sc_bf16": lambda: fused_chain.fused_sc_ifft_pa_fft_planar(
             d, 4096, pa_model="softlim", sat=sat, cubic_coeff=coeff, storage="bfloat16"),
         "full_f32": lambda: fused_chain.fused_ifft_pa_fft_planar(
             f, pa_model="softlim", sat=sat, cubic_coeff=coeff, storage="float32"),
         "clip": lambda: fused_pa.fused_ifft_clip_fft(f, 1.5),
+        "precoded_bf16": lambda: precoded(vb[0], vb[1], "bfloat16"),
+        "precoded_f32": lambda: precoded(v[0], v[1], "float32"),
     }
     for name, call in calls.items():
         call()
@@ -381,6 +503,48 @@ def test_frame_kernel_equals_plain(cuda):
             out[alg, plain] = np.concatenate([r.clean_err.cpu().numpy()[:, None],
                                               r.dist_err.cpu().numpy()], axis=1)
         np.testing.assert_array_equal(out[alg, False], out[alg, True])
+
+
+@pytest.mark.parametrize("alg", ["cnc", "mcnc"])
+def test_bf16_rayleigh_frames_precoded_equal_eager_precode(cuda, alg, monkeypatch):
+    """The bf16 Rayleigh frame: its transmitter chain, precoded in the
+    kernel's load, gives exactly the counters of the eager precode followed
+    by the planes' layout (the chain as it ran before), one precoded launch
+    for the TX and one for each MCNC pass. The plain versions (forced) give
+    totals within 1%: the bf16 plain version sums in another order than the
+    tensor cores, so its bits differ (BF16_PLAIN_TOL)."""
+    from mimo_ofdm_tpu_torch.models import link_planar
+    from mimo_ofdm_tpu_torch.ops import fused_chain
+    cfg = config.LinkConfig(
+        modem=config.ModemConfig(n_fft=1024, n_sub_carr=512),
+        array=config.ArrayConfig(n_elements=8),
+        channel=config.ChannelConfig(model="rayleigh"),
+        rx=config.RxConfig(algorithm=alg),
+        channel_storage="bfloat16", mxu_fft_storage="bfloat16")
+    frame = link.make_frame_fn(cfg, 2, device=cuda)
+    draws = link.FrameDraws.draw(cfg, 8, torch.Generator(device=cuda).manual_seed(6))
+
+    def counters():
+        r = frame(15.0, draws)
+        return np.concatenate([r.clean_err.cpu().numpy()[:, None], r.dist_err.cpu().numpy()],
+                              axis=1)
+
+    def eager(sym, vr, vi, n_fft, **kw):
+        return fused_chain.fused_sc_ifft_pa_fft_planar_io(
+            *fused_pa.precode_planes(sym, vr, vi), n_fft, **kw)
+
+    before = KERNEL.launches_by_layout["precoded_bf16"]
+    precoded = counters()
+    assert KERNEL.launches_by_layout["precoded_bf16"] - before == (1 + 3 if alg == "mcnc" else 1)
+    KERNEL.force_plain = True
+    try:
+        plain = counters()
+    finally:
+        KERNEL.force_plain = False
+    monkeypatch.setattr(link_planar, "fused_sc_precoded_ifft_pa_fft_planar_io", eager)
+    np.testing.assert_array_equal(precoded, counters())
+    assert precoded[:, 1].sum() > 0
+    assert abs(int(plain[:, 1:].sum()) - int(precoded[:, 1:].sum())) <= 0.01 * precoded[:, 1:].sum()
 
 
 @pytest.mark.parametrize("storage", ["float32", "complex64"])

@@ -305,3 +305,61 @@ def test_wrapper_zero_rows():
     pr, pi = fused_pa.fused_ifft_pa_fft(x, x, 1.0, n_fft=4096)
     assert pr.shape == pi.shape == (0, 2048) and pr.dtype == torch.bfloat16
     assert fused_pa.fused_ifft_pa_fft.launches == before
+
+
+# --- the precoded layouts: the MRT precode as the chain's load ---------------
+
+def _eager_precode_and_chain(sym, vr, vi, sat, coeff, **kw):
+    """The transmitter's chain as it ran before the precoded layouts: the
+    precode as plane operations of the storage dtype, then the planes'
+    entry point."""
+    st = vr.dtype
+    sr = sym.real.to(st)[:, None, :]
+    si = sym.imag.to(st)[:, None, :]
+    pr = sr * vr - si * vi
+    pi_ = sr * vi + si * vr
+    return fused_pa.fused_ifft_pa_fft(pr, pi_, sat, coeff, n_fft=1024, mode="sc", **kw)
+
+
+@pytest.mark.parametrize("model", ["softlim", "toi"])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_precoded_entry_equals_eager_precode_and_plain_chain(storage, model):
+    """At n_fft 1024 / 8 antennas the precoded entry point (its plain version
+    here) and its ``ops/fused_chain`` counterpart give exactly the eager
+    precode followed by the plain chain, and launch nothing on the CPU."""
+    st = fused_pa.storage_dtype(storage)
+    g = torch.Generator().manual_seed(17 + len(storage))
+    sym = torch.complex(torch.randn(3, 512, generator=g), torch.randn(3, 512, generator=g))
+    h = torch.randn(2, 3, 8, 512, generator=g)
+    vr, vi = (h[0] * 0.3).to(st), (h[1] * 0.3).to(st)
+    sat = (torch.rand(3, generator=g) + 0.2)[:, None]
+    coeff = (torch.rand(3, generator=g) * 0.05)[:, None]
+    want = _eager_precode_and_chain(sym, vr, vi, sat, coeff, pa_model=model)
+    before = fused_pa.fused_ifft_pa_fft.launches
+    got = fused_pa.fused_precoded_ifft_pa_fft(sym, vr, vi, sat, coeff, pa_model=model,
+                                              n_fft=1024)
+    chain = fused_chain.fused_sc_precoded_ifft_pa_fft_planar_io(
+        sym, vr, vi, 1024, pa_model=model, sat=sat, cubic_coeff=coeff, storage=storage)
+    assert fused_pa.fused_ifft_pa_fft.launches == before
+    for out in (got, chain):
+        assert out[0].dtype == out[1].dtype == st and out[0].shape == (3, 8, 512)
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
+def test_precoded_entry_rejects_what_the_kernel_does_not_take():
+    sym = torch.zeros(2, 512, dtype=torch.complex64)
+    v = torch.zeros(2, 8, 512)
+    ok = dict(pa_model="softlim", n_fft=1024)
+    bad = [((sym.to(torch.complex128), v, v), ok),                  # symbols not complex64
+           ((sym, v.double(), v.double()), ok),                     # planes not f32 / bf16
+           ((sym, v, v.bfloat16()), ok),                            # planes of two dtypes
+           ((sym[:, :256], v, v), ok),                              # symbols' width
+           ((sym[:1], v, v), ok),                                   # frames
+           ((sym, v[0], v[0]), ok),                                 # no antenna axis
+           ((sym, v, v), dict(ok, n_fft=512)),                      # n_sc not below n_fft
+           ((sym, v, v), dict(ok, pa_model="bogus"))]
+    for args, kw in bad:
+        with pytest.raises(ValueError):
+            fused_pa.fused_precoded_ifft_pa_fft(*args, 1.0, **kw)
+    pr, pi = fused_pa.fused_precoded_ifft_pa_fft(sym[:0], v[:0], v[:0], 1.0, **ok)
+    assert pr.shape == pi.shape == (0, 8, 512)
