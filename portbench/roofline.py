@@ -3,13 +3,19 @@ card's published peaks: the yardstick of ``kernel.fused_pa_roofline``.
 
 The counts do not depend on what implements the chain:
 
-* rows: each frame sends its ``n_ant`` antenna rows through the chain once
-  for the distorted TX, then the receiver runs one replica a pass for
-  ``n_iters + 1`` passes: CNC one row a pass (the nominal PA), MCNC all
-  ``n_ant`` rows a pass (the whole array);
+* rows (``models/link_mu.py``'s docstring has the multi-user counts): each
+  frame sends its ``n_ant`` antenna rows through the chain once for the
+  distorted TX (the users' signals are summed before the chain), then the
+  receiver runs one replica a pass for ``n_iters + 1`` passes: CNC and
+  CNC-MU one row a user a pass (the nominal PA), single-user MCNC all
+  ``n_ant`` rows a pass (the whole array), MCNC-MU ``n_users x n_ant`` rows
+  a pass;
 * bytes: each row reads its ``n_sc`` data points and writes ``n_sc``, at the
   configuration's storage (bf16: 4 B a complex point, float32: 8 B), plus
-  8 B a row (its saturation power and cubic coefficient);
+  8 B a row (its saturation power and cubic coefficient). The multi-user
+  frame hands the chain interleaved complex64 at 8 B a point where its
+  storage is bf16; the count stays at the storage's 4 B, so that frame's
+  share shows the gap its wider I/O costs;
 * operations: ``5 n log2 n`` for each of the row's two ``n_fft``-point
   transforms;
 * least time: ``max(bytes / HBM bandwidth, operations / peak)``, the peak of
@@ -29,14 +35,16 @@ POINT_BYTES = {"bfloat16": 4, "float32": 8}
 ROW_PARAM_BYTES = 8
 
 
-def rows_per_frame(receiver: str, n_ant: int, n_iters: int) -> int:
+def rows_per_frame(receiver: str, n_ant: int, n_iters: int, n_users: int = 1) -> int:
     """Chain rows a frame: the TX's ``n_ant``, then the replica passes."""
     passes = n_iters + 1
-    if receiver == "cnc":
-        return n_ant + passes
-    if receiver == "mcnc":
+    if receiver in ("cnc", "cnc_mu"):
+        return n_ant + passes * n_users
+    if receiver == "mcnc" and n_users == 1:
         return n_ant + passes * n_ant
-    raise ValueError(f"no chain row count for receiver {receiver!r}")
+    if receiver == "mcnc_mu":
+        return n_ant + passes * n_users * n_ant
+    raise ValueError(f"no chain row count for receiver {receiver!r} of {n_users} users")
 
 
 def row_flops(n_fft: int) -> float:
@@ -60,6 +68,7 @@ def round_least_seconds(link: dict, traffic: dict) -> float:
     """The least time of one round's chain rows for a configuration
     (``link``, the port's configuration as a dict) and a traffic mix."""
     rows = traffic["frames_per_round"] * rows_per_frame(
-        traffic["receiver"], link["array"]["n_elements"], link["rx"]["max_cnc_iters"])
+        traffic["receiver"], link["array"]["n_elements"], link["rx"]["max_cnc_iters"],
+        link["modem"]["n_users"])
     return least_seconds(rows, link["modem"]["n_fft"], link["modem"]["n_sub_carr"],
                          link["mxu_fft_storage"])[0]

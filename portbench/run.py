@@ -7,22 +7,25 @@ One run of one cell of ``BENCHMARK.json`` (its parts found by name, see
 
 1. points the kernel build and every compiler cache at fixed directories
    under ``portbench/.cache/``, so that only a checkout's first run builds;
-2. builds the port's frame function (``models.link.make_frame_fn``) for the
-   cell's configuration and receiver;
+2. builds the port's frame function for the cell's configuration and
+   receiver, through the configuration's frame family (``frames/``: the
+   single-user ``models.link.make_frame_fn`` unless it names another);
 3. draws a pool of distinct rounds of inputs on the card from ``--seed``
-   (``traffic.py``), and warms up the cell's one shape;
+   (``traffic.py`` and the family's ``draw_round``), and warms up the
+   cell's one shape;
 4. measures for ``--seconds``: a closed loop with the traffic's rounds in
    flight, each round ``frame_fn(snr_db, draws)`` on the next pool slot,
-   its per-frame counters copied to pinned memory and waited on through
-   the round's own event (the port's ``bench.py`` fetch). ``frames_per_s``
-   is every frame whose counters reached the host, over the time from the
-   window's start to the last of them. With ``--trace 1`` the window (at
-   most :data:`TRACE_SECONDS`) runs under ``torch.profiler``, recording the
-   card's activity, and the per-layer metrics are read from its Chrome
-   trace instead;
+   its per-frame counters (per user, in a multi-user family) copied to
+   pinned memory and waited on through the round's own event (the port's
+   ``bench.py`` fetch). ``frames_per_s`` is every frame whose counters
+   reached the host, over the time from the window's start to the last of
+   them. With ``--trace 1`` the window (at most :data:`TRACE_SECONDS`)
+   runs under ``torch.profiler``, recording the card's activity, and the
+   per-layer metrics are read from its Chrome trace instead;
 5. reads the peak memory, frees the program's state, and compares the
    counters of a sample of the window's frames, drawn from the seed, with
-   the plain reference's on the same draws (``check.py``);
+   the plain reference's on the same draws (``check.py``; each user's
+   counters of a frame are a row of their own);
 6. prints one JSON line: ``correct``, ``attempted``, ``failed``,
    ``metrics``, ``device``, with ``--trace 1`` ``breakdown``, then ``card``
    (the card's name and power limit) and, last, ``checks``: each number
@@ -40,6 +43,7 @@ _T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import contextlib  # noqa: E402
+import functools  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -101,9 +105,6 @@ class Harness:
     def __init__(self, cell, seed: int, device):
         import torch
 
-        from mimo_ofdm_tpu_torch.models.link import FrameDraws, make_frame_fn
-        from mimo_ofdm_tpu_torch.utils.config import config_from_dict
-
         from portbench import traffic
 
         self.torch = torch
@@ -112,23 +113,24 @@ class Harness:
         tr = cell.traffic
         self.frames, self.depth, self.snr_db = (tr["frames_per_round"], tr["rounds_in_flight"],
                                                 float(tr["snr_db"]))
-        self.frame_fn = make_frame_fn(config_from_dict(cell.link), cell.n_iters, device=self.dev)
-        self.pool = traffic.make_pool(cell.link, tr, seed, self.dev)
-        self.draws = [FrameDraws(d["fade"], d["bits_c"], d["bits_d"], d["noise_c"],
-                                 d["noise_d"], d["loc"]) for d in self.pool]
+        fam = cell.frame
+        self.frame_fn = fam.build(cell.link, cell.n_iters, self.dev, **cell.frame_args)
+        self.pool = traffic.make_pool(cell.link, tr, seed, self.dev,
+                                      functools.partial(fam.draw_round, **cell.frame_args))
+        self.draws = [fam.to_draws(d) for d in self.pool]
         self.frame_host_s = 0.0            # host clock inside the frame calls
 
     def launch(self, i: int):
         """Enqueue round ``i`` on pool slot ``i % len(pool)``: returns
-        ``(host counters, event, slot)``, the counters ``[frames, n_iters +
-        2]`` copied to pinned memory behind the round and followed by the
-        round's own event."""
+        ``(host counters, event, slot)``, the counters ``[frames, ...,
+        n_iters + 2]`` (the family's ``counters``) copied to pinned memory
+        behind the round and followed by the round's own event."""
         torch = self.torch
         slot = i % len(self.draws)
         t = time.perf_counter()
         c = self.frame_fn(self.snr_db, self.draws[slot])
         self.frame_host_s += time.perf_counter() - t
-        out = torch.cat([c.clean_err[:, None], c.dist_err], dim=1)
+        out = self.cell.frame.counters(c)
         if out.device.type != "cuda":
             return out, None, slot
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -183,7 +185,8 @@ class Harness:
     def sample(self, counted: list) -> tuple[list[tuple[int, int]], "np.ndarray"]:
         """Frames of the window drawn from the seed, :data:`CHECK_FRAMES` of them
         at most, each pool frame once: ``(picks [(slot, frame)], the
-        program's counters [picks, n_iters + 2])``."""
+        program's counters [rows, n_iters + 2])``, every axis but the last
+        flattened (a row a frame, or a row a user of each frame)."""
         import numpy as np
 
         from portbench import traffic
@@ -202,10 +205,12 @@ class Harness:
             rows.append(counted[r][1][f])
             if len(picks) == CHECK_FRAMES:
                 break
-        return picks, np.array(rows, np.int64)
+        rows = np.array(rows, np.int64)
+        return picks, rows.reshape(-1, rows.shape[-1]) if rows.size else rows
 
     def reference(self, picks: list[tuple[int, int]], planes: str = "float32"):
-        """The plain reference's counters of the frames ``picks``."""
+        """The plain reference's counters of the frames ``picks``, flattened
+        as :meth:`sample` flattens the program's."""
         import numpy as np
 
         from portbench import traffic
@@ -219,8 +224,8 @@ class Harness:
                 d = traffic.gather(self.pool, picks[i:i + CHECK_BLOCK])
                 c = self.cell.reference.frame_counters(
                     self.cell.link, self.cell.traffic["receiver"], self.cell.n_iters,
-                    self.snr_db, d, planes=planes)
-                out.append(c.cpu().numpy())
+                    self.snr_db, d, planes=planes, **self.cell.frame_args)
+                out.append(c.cpu().numpy().reshape(-1, c.shape[-1]))
         return np.concatenate(out).astype(np.int64)
 
 

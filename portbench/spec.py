@@ -5,8 +5,12 @@ metrics; everything else is a file of its own, found by that name:
 
 * ``configs/<config>.json`` (the ``file`` the configuration's entry names):
   ``link``, the port's configuration as ``dataclasses.asdict`` of its
-  ``LinkConfig``, and ``reference``, the module under ``reference/`` that
-  holds its plain reference;
+  ``LinkConfig``; ``reference``, the module under ``reference/`` that
+  holds its plain reference; and, optionally, ``frame``, the frame family
+  under ``frames/`` (``miso`` without the key), with its fixed arguments in
+  ``frame_args``;
+* ``frames/<family>.py``: the port's frame function, the round's draws and
+  the counters, for the harness (``frames/__init__.py`` lists them);
 * ``traffic/<traffic>.json``: the receiver, the frames a round, the rounds
   in flight and the SNR;
 * ``limits/<cell>.json``: each number the check compares, with its limit;
@@ -46,6 +50,8 @@ class Cell:
     traffic: dict
     limits: dict                      # number -> {"limit": ..., ...}
     reference: object                 # the reference module
+    frame: object                     # the frame family's module
+    frame_args: dict                  # the family's fixed arguments
     end_to_end: list[dict]
     per_layer: list[Metric]
     readers: dict                     # every per-layer metric's reader, by name
@@ -91,6 +97,8 @@ def load_cell(name: str, benchmark: Path = BENCHMARK, root: Path = ROOT) -> Cell
     link["rx"]["algorithm"] = traffic["receiver"]
     reference = load_module(root / "reference" / f"{cfg_file['reference']}.py",
                             f"portbench_reference_{cfg_file['reference']}")
+    family = cfg_file.get("frame", "miso")
+    frame = load_module(root / "frames" / f"{family}.py", f"portbench_frame_{family}")
     readers = {m["name"]: load_module(root / "metrics" / f"{m['name']}.py",
                                       "portbench_metric_" + m["name"].replace(".", "_")).read
                for m in bench["per_layer"]}
@@ -99,5 +107,5 @@ def load_cell(name: str, benchmark: Path = BENCHMARK, root: Path = ROOT) -> Cell
     per_layer = [Metric(m["name"], m["unit"], readers[m["name"]])
                  for m in bench["per_layer"] if _applies(m, name) and m["moves"] in reported]
     return Cell(name=name, chips=w["chips"], link=link, traffic=traffic, limits=limits,
-                reference=reference, end_to_end=end_to_end, per_layer=per_layer,
-                readers=readers)
+                reference=reference, frame=frame, frame_args=cfg_file.get("frame_args", {}),
+                end_to_end=end_to_end, per_layer=per_layer, readers=readers)

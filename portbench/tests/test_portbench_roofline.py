@@ -28,6 +28,21 @@ def test_f32_rows_count_eight_bytes_a_point():
 @pytest.mark.parametrize("receiver,rows", [("cnc", 64 + 9), ("mcnc", 64 * 10)])
 def test_rows_per_frame(receiver, rows):
     assert roofline.rows_per_frame(receiver, 64, 8) == rows
+    assert roofline.rows_per_frame(receiver, 64, 8, n_users=1) == rows
+
+
+@pytest.mark.parametrize("receiver,rows", [
+    ("cnc", 64 + 9 * 2),            # the summed TX, then one row a user a pass
+    ("cnc_mu", 64 + 9 * 2),
+    ("mcnc_mu", 64 + 9 * 2 * 64),   # every user's whole array a pass
+])
+def test_rows_per_two_user_frame(receiver, rows):
+    assert roofline.rows_per_frame(receiver, 64, 8, n_users=2) == rows
+
+
+def test_no_single_user_mcnc_rows_for_two_users():
+    with pytest.raises(ValueError, match="'mcnc' of 2 users"):
+        roofline.rows_per_frame("mcnc", 64, 8, n_users=2)
 
 
 @pytest.mark.parametrize("config,traffic,least_ms", [

@@ -14,6 +14,8 @@ BENCHMARK = ROOT.parent / "BENCHMARK.json"
 
 
 def test_every_cell_of_the_benchmark_loads():
+    """Each cell's per-layer metrics move an end-to-end metric the cell
+    reports, its frames/s among them."""
     bench = json.loads(BENCHMARK.read_text())
     for w in bench["workloads"]:
         cell = spec.load_cell(w["name"])
@@ -23,33 +25,50 @@ def test_every_cell_of_the_benchmark_loads():
         assert e2e in (["frames_per_s", "setup_s"], ["frames_per_s.host_paced", "setup_s"])
         assert cell.per_layer and {m.name for m in cell.per_layer} <= set(cell.readers)
         moves = {m["name"]: m["moves"] for m in bench["per_layer"]}
-        assert {moves[m.name] for m in cell.per_layer} == {e2e[0]}, w["name"]
+        moved = {moves[m.name] for m in cell.per_layer}
+        assert moved <= set(e2e) and e2e[0] in moved, w["name"]
         assert cell.limits, w["name"]
 
 
+def test_a_configuration_without_a_frame_family_runs_the_single_user_frame():
+    """The benchmark's configurations name no ``frame``: ``frames/miso.py``,
+    with no arguments."""
+    bench = json.loads(BENCHMARK.read_text())
+    for w in bench["workloads"]:
+        cfg = json.loads((ROOT.parent / next(
+            c["file"] for c in bench["configs"] if c["name"] == w["config"])).read_text())
+        assert "frame" not in cfg and "frame_args" not in cfg
+        cell = spec.load_cell(w["name"])
+        assert cell.frame.__file__ == str(ROOT / "frames" / "miso.py")
+        assert cell.frame_args == {}
+
+
 def test_each_per_layer_metric_has_its_twin_for_the_host_paced_cells():
-    """The same six readings in both groups of cells, each moving its
-    group's frames/s."""
+    """Every ``X.host_paced`` reading has its ``X``, of the same layer and
+    unit, the one moving ``frames_per_s.host_paced`` and the other
+    ``frames_per_s``."""
     per_layer = {m["name"]: m for m in json.loads(BENCHMARK.read_text())["per_layer"]}
-    base = [n for n in per_layer if not n.endswith(".host_paced")]
-    assert len(base) == 6
-    for n in base:
-        twin = per_layer[n + ".host_paced"]
-        assert per_layer[n]["moves"] == "frames_per_s"
+    twins = [n for n in per_layer if n.endswith(".host_paced")]
+    assert twins
+    for n in twins:
+        base = per_layer[n[:-len(".host_paced")]]
+        twin = per_layer[n]
+        assert base["moves"] == "frames_per_s"
         assert twin["moves"] == "frames_per_s.host_paced"
-        assert twin["layer"] == per_layer[n]["layer"] and twin["unit"] == per_layer[n]["unit"]
+        assert twin["layer"] == base["layer"] and twin["unit"] == base["unit"]
     view = trace.TraceView(window=(0.0, 10.0), rounds=2,
                            device_ops=[(1.0, 4.0, "k", "kernel"), (3.0, 5.0, "k", "kernel")])
     cell = spec.load_cell("miso_los.cnc.b32")
+    view.readers = cell.readers
     for m in cell.per_layer:
-        view.readers = cell.readers
-        assert m.read(view) == cell.readers[m.name[:-len(".host_paced")]](view)
+        if m.name in twins:
+            assert m.read(view) == cell.readers[m.name[:-len(".host_paced")]](view)
 
 
 def test_a_cell_config_traffic_and_metric_added_as_files(tmp_path):
     """A folder of its own with one new configuration, traffic mix, cell,
     limits file and metric; the harness's files are untouched."""
-    for d in ("metrics", "reference"):
+    for d in ("metrics", "reference", "frames"):
         shutil.copytree(ROOT / d, tmp_path / d)
     for d in ("configs", "traffic", "limits"):
         (tmp_path / d).mkdir()
@@ -86,6 +105,7 @@ def test_a_cell_config_traffic_and_metric_added_as_files(tmp_path):
     assert cell.traffic["frames_per_round"] == 8
     assert cell.limits == {"gap_sq_mean": {"limit": 1.0}}
     assert cell.reference.__file__ == str(tmp_path / "reference" / "miso.py")
+    assert cell.frame.__file__ == str(tmp_path / "frames" / "miso.py")
     names = [m.name for m in cell.per_layer]
     assert "round.kernels_seen" in names and "device.idle_share" in names
     assert "kernel.fused_pa_roofline" not in names      # listed for the benchmark's cells
