@@ -47,6 +47,7 @@ from mimo_ofdm_tpu_torch.ops import ofdm
 from mimo_ofdm_tpu_torch.parallel.collectives import ant_slice
 from mimo_ofdm_tpu_torch.utils.config import LinkConfig
 from mimo_ofdm_tpu_torch.utils.device import resolve_device
+from mimo_ofdm_tpu_torch.utils.spans import OFF, enabled, span
 
 
 def default_user_positions(angles_deg=(-30.0, 30.0), distances=(100.0, 316.3),
@@ -187,7 +188,11 @@ def make_mu_frame_fn(cfg: LinkConfig, n_iters: int, user_positions: np.ndarray, 
     MuFrameCounters`` on ``device`` (``cuda`` unless ``device="cpu"``)
     (``mimo_ofdm_tpu/models/link_mu.py:64-185``). Without ``draws`` the
     frame draws ``batch`` frames from ``generator``. ``ant_group``: the
-    frame of this rank's antennas (see the module docstring)."""
+    frame of this rank's antennas (see the module docstring).
+
+    Its stages carry the planar frame's spans (``utils/spans.py``; the
+    ``frame`` span also counts ``users``), and the MCNC-MU replica's
+    precode and combine their own, ``mu.precode`` and ``mu.combine``."""
     dev = resolve_device(device)
     m = cfg.modem.constel_size
     n_fft, n_sc = cfg.modem.n_fft, cfg.modem.n_sub_carr
@@ -209,37 +214,49 @@ def make_mu_frame_fn(cfg: LinkConfig, n_iters: int, user_positions: np.ndarray, 
     user_channels = _user_channels(cfg, user_positions, reroll, dev, ant_group)
 
     def frame(snr_db, draws: MuFrameDraws) -> MuFrameCounters:
-        h_usr = user_channels(draws)                         # [U, B, n_ant, n_sc]
-        v = precoder(h_usr.movedim(0, -3))                   # [B, n_ant, U, n_sc]
-        sat_pow = precoding.pa_sat_power(ibo_db, avg_samp_pow, v, multi_user=True, **shard)
-        agc = agc_mod.compute_agc_sc(h_usr, v, ibo_db, n_ant, usr_idx=slice(None),
-                                     ant_group=ant_group)
+        with (span("frame", frames=draws.batch, users=n_usr) if enabled() else OFF):
+            return _stages(snr_db, draws)
+
+    def _stages(snr_db, draws: MuFrameDraws) -> MuFrameCounters:
+        with span("frame.channel"):
+            h_usr = user_channels(draws)                     # [U, B, n_ant, n_sc]
+        with span("frame.precoder"):
+            v = precoder(h_usr.movedim(0, -3))               # [B, n_ant, U, n_sc]
+            sat_pow = precoding.pa_sat_power(ibo_db, avg_samp_pow, v, multi_user=True,
+                                             **shard)
+            agc = agc_mod.compute_agc_sc(h_usr, v, ibo_db, n_ant, usr_idx=slice(None),
+                                         ant_group=ant_group)
 
         # clean run: the TX (I)FFT round trip is the identity on the data bins
-        if incl_clean:
-            bits_c = draws.bits_c.to(dev)
-            tx_sc = transmit.precode_symbols(transmit.modulate_users(bits_c, m), v,
-                                             sum_users=True)           # [B, n_ant, n_sc]
-            rx = noise_ops.awgn(channels.propagate(h_usr, tx_sc, ant_group=ant_group),
-                                snr_db, avg_sym_pow * agc.hk_vk_noise_scaler,
-                                noise_ops.complex_normal(draws.noise_c.to(dev)).movedim(1, 0))
-            rx_bits = receivers.standard_receive_sc(rx / agc.hk_vk_agc_sc, m)
-            clean_err = bits_ops.count_bit_errors(bits_c.movedim(1, 0), rx_bits, axis=-1).T
-        else:
-            clean_err = torch.zeros((draws.batch, n_usr), dtype=torch.int32, device=dev)
+        with span("frame.clean"):
+            if incl_clean:
+                bits_c = draws.bits_c.to(dev)
+                tx_sc = transmit.precode_symbols(transmit.modulate_users(bits_c, m), v,
+                                                 sum_users=True)       # [B, n_ant, n_sc]
+                rx = noise_ops.awgn(channels.propagate(h_usr, tx_sc, ant_group=ant_group),
+                                    snr_db, avg_sym_pow * agc.hk_vk_noise_scaler,
+                                    noise_ops.complex_normal(draws.noise_c.to(dev)).movedim(1, 0))
+                rx_bits = receivers.standard_receive_sc(rx / agc.hk_vk_agc_sc, m)
+                clean_err = bits_ops.count_bit_errors(bits_c.movedim(1, 0), rx_bits,
+                                                      axis=-1).T
+            else:
+                clean_err = torch.zeros((draws.batch, n_usr), dtype=torch.int32, device=dev)
 
         # distorted run: one chain launch over the B x n_ant rows of the
         # users' summed signal
         bits_d = draws.bits_d.to(dev)
         tx_sym = transmit.modulate_users(bits_d, m)              # [B, U, n_sc]
-        fd_dist_sc = transmit.array_transmit_sc(
-            bits_d, constel_size=m, n_fft=n_fft, v=v, pa_model=pa_model,
-            sat_power=sat_pow[:, None], rapp_p=cfg.pa.rapp_p_hardness,
-            sum_users=True, **mxu)
-        rx = noise_ops.awgn(channels.propagate(h_usr, fd_dist_sc, ant_group=ant_group), snr_db,
-                            avg_sym_pow * agc.ak_hk_vk_noise_scaler,
-                            noise_ops.complex_normal(draws.noise_d.to(dev)).movedim(1, 0))
-        rx_sc = rx / agc.ak_hk_vk_agc_sc                          # [U, B, n_sc]
+        with span("tx.precode"):
+            per_ant_sc = transmit.precode_symbols(tx_sym, v, sum_users=True)
+        fd_dist_sc = transmit.ifft_pa_fft_sc(per_ant_sc, n_fft, pa_model, sat_pow[:, None],
+                                             cfg.pa.rapp_p_hardness, **mxu)
+        del per_ant_sc                  # not kept through the receiver's passes
+        with span("tx.combine"):
+            rx = channels.propagate(h_usr, fd_dist_sc, ant_group=ant_group)
+        with span("frame.awgn"):
+            rx = noise_ops.awgn(rx, snr_db, avg_sym_pow * agc.ak_hk_vk_noise_scaler,
+                                noise_ops.complex_normal(draws.noise_d.to(dev)).movedim(1, 0))
+            rx_sc = rx / agc.ak_hk_vk_agc_sc                      # [U, B, n_sc]
 
         if algorithm == "cnc":
             replica = receivers.make_cnc_replica(m, n_fft, n_sc, ibo_db, pa_model, **mxu)
@@ -254,9 +271,10 @@ def make_mu_frame_fn(cfg: LinkConfig, n_iters: int, user_positions: np.ndarray, 
                 n_fft=n_fft, n_sc=n_sc, pa_model=pa_model, sat_power=sat_pow[:, None],
                 ant_group=ant_group, **mxu)
         bits_all, _ = receivers.cnc_iterate(rx_sc, n_iters, m, replica)
-        dist_err = bits_ops.count_bit_errors(bits_d.movedim(1, 0), bits_all, axis=-1)
-        return MuFrameCounters(clean_err=clean_err.contiguous(),
-                               dist_err=dist_err.permute(2, 1, 0).contiguous())
+        with span("frame.count"):
+            dist_err = bits_ops.count_bit_errors(bits_d.movedim(1, 0), bits_all, axis=-1)
+            return MuFrameCounters(clean_err=clean_err.contiguous(),
+                                   dist_err=dist_err.permute(2, 1, 0).contiguous())
 
     return _mu_signature(frame, cfg, n_usr, reroll, False)
 

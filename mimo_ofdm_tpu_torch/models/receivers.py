@@ -204,12 +204,14 @@ def make_mcnc_mu_replica(usr_symbols: torch.Tensor, h_sc: torch.Tensor,
         n_usr, *([1] * (usr_symbols.ndim - 2)), n_usr, 1)
 
     def replica(det_sym: torch.Tensor) -> torch.Tensor:
-        sym_mu = torch.where(own, det_sym[..., None, :], usr_symbols)
-        per_ant_sc = transmit.precode_symbols(sym_mu, v, sum_users=True)
+        with span("mu.precode"):
+            sym_mu = torch.where(own, det_sym[..., None, :], usr_symbols)
+            per_ant_sc = transmit.precode_symbols(sym_mu, v, sum_users=True)
         fd_dist_sc = transmit.ifft_pa_fft_sc(per_ant_sc, n_fft, pa_model, sat_power,
                                              rapp_p, use_mxu_fft=use_mxu_fft,
                                              mxu_storage=mxu_storage)
-        return channels.propagate(h_sc, fd_dist_sc, ant_group=ant_group) / agc_corr_sc
+        with span("mu.combine"):
+            return channels.propagate(h_sc, fd_dist_sc, ant_group=ant_group) / agc_corr_sc
 
     return replica
 

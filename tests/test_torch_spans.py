@@ -1,8 +1,9 @@
-"""The span recorder (``utils/spans.py``) and the spans at the planar
-frame's stages, on the CPU: off it hands back one shared object and keeps
-nothing; on it keeps the nesting, the rounds and the counts; a CNC and an
-MCNC frame give the stage tree ``PERF.md`` §3 lists, with counters
-bit-identical on and off; spans land on the profiler's trace clock."""
+"""The span recorder (``utils/spans.py``) and the spans at the planar and
+multi-user frames' stages, on the CPU: off it hands back one shared object
+and keeps nothing; on it keeps the nesting, the rounds and the counts; a
+CNC and an MCNC frame, and the two-user frame with each of its receivers,
+give the stage tree ``PERF.md`` §3 lists, with counters bit-identical on
+and off; spans land on the profiler's trace clock."""
 
 import ast
 import gc
@@ -14,7 +15,7 @@ from collections import Counter
 import pytest
 import torch
 
-from mimo_ofdm_tpu_torch.models import link
+from mimo_ofdm_tpu_torch.models import link, link_mu
 from mimo_ofdm_tpu_torch.utils import config, profiling, spans
 
 N_ITERS = 2
@@ -263,6 +264,99 @@ def test_every_kernel_call_runs_inside_a_chain_span(monkeypatch):
         monkeypatch.setattr(fused_chain, name, probed(getattr(fused_chain, name)))
     for alg in ("mcnc", "cnc"):
         rec = _frame_with_spans(alg)[3]
+        probes = [s for s in rec if s.name == "probe"]
+        assert len(probes) == 1 + N_ITERS + 1
+        assert all(rec[s.parent].name == "chain" for s in probes)
+
+
+# the two-user frame's counters [B, U, clean + passes] on _mu_frame_with_spans'
+# draws, as the frame gave them before it had spans
+MU_COUNTERS_BEFORE_SPANS = {
+    "cnc": [[[45, 91, 82, 90], [63, 142, 160, 177]], [[47, 107, 98, 98], [53, 143, 177, 181]],
+            [[52, 76, 73, 83], [81, 149, 172, 172]]],
+    "cnc_mu": [[[45, 91, 259, 283], [63, 142, 241, 252]],
+               [[47, 107, 251, 274], [53, 143, 251, 272]],
+               [[52, 76, 238, 262], [81, 149, 256, 272]]],
+    "mcnc_mu": [[[45, 91, 78, 84], [63, 142, 107, 101]], [[47, 107, 91, 93], [53, 143, 109, 98]],
+                [[52, 76, 63, 73], [81, 149, 94, 79]]],
+}
+N_USR = 2
+
+
+def _mu_frame_with_spans(alg: str):
+    """One two-user LOS frame at +-30 deg on fixed draws with spans off,
+    then on: the counters ``[B, U, n_iters + 2]`` of both and the spans of
+    the call that was recorded."""
+    cfg = config.LinkConfig(modem=config.ModemConfig(n_fft=256, n_sub_carr=128, n_users=N_USR),
+                            array=config.ArrayConfig(n_elements=N_ANT),
+                            channel=config.ChannelConfig(model="los"),
+                            rx=config.RxConfig(algorithm=alg, max_cnc_iters=N_ITERS))
+    frame_fn = link_mu.make_mu_frame_fn(cfg, N_ITERS, link_mu.default_user_positions(),
+                                        device="cpu")
+    draws = frame_fn.draw(BATCH, torch.Generator().manual_seed(7))
+
+    def counters(c):
+        return torch.cat([c.clean_err[..., None], c.dist_err], -1)
+
+    off = counters(frame_fn(15.0, draws))
+    spans.enable()
+    on = counters(frame_fn(15.0, draws))
+    return off, on, spans.collect()
+
+
+@pytest.mark.parametrize("alg", ["cnc", "cnc_mu", "mcnc_mu"])
+def test_mu_frame_counters_equal_on_off_and_before_the_spans(alg):
+    off, on, _ = _mu_frame_with_spans(alg)
+    assert torch.equal(off, on)
+    assert off.tolist() == MU_COUNTERS_BEFORE_SPANS[alg]
+
+
+@pytest.mark.parametrize("alg", ["cnc", "cnc_mu", "mcnc_mu"])
+def test_mu_frame_stage_tree(alg):
+    """The planar frame's stages; the MCNC-MU replica's precode and combine
+    in ``mu.precode``/``mu.combine``, inside ``rx.replica`` only."""
+    rec = _mu_frame_with_spans(alg)[2]
+    top = [s for s in rec if s.parent == -1]
+    assert [s.name for s in top] == ["frame"]
+    assert top[0].counts == {"frames": BATCH, "users": N_USR}
+    children = [s.name for s in rec if s.parent == 0]
+    assert children == ["frame.channel", "frame.precoder", "frame.clean", "tx.precode", "chain",
+                        "tx.combine", "frame.awgn", *["rx.pass"] * (N_ITERS + 1), "frame.count"]
+    tx_chain = next(s for s in rec if s.name == "chain" and s.parent == 0)
+    assert tx_chain.counts == {"rows": BATCH * N_ANT}           # the users summed first
+    passes = [i for i, s in enumerate(rec) if s.name == "rx.pass"]
+    for i in passes:
+        assert [s.name for s in rec if s.parent == i] == ["rx.detect", "rx.replica", "rx.update"]
+    for i in (i for i, s in enumerate(rec) if s.name == "rx.replica"):
+        inside = [s for s in rec if s.parent == i]
+        if alg == "mcnc_mu":     # the whole two-user TX, each user's detection swapped in
+            assert [s.name for s in inside] == ["mu.precode", "chain", "mu.combine"]
+            assert inside[1].counts == {"rows": BATCH * N_USR * N_ANT}
+        else:                    # one PA's replica a user
+            assert [s.name for s in inside] == ["chain"]
+            assert inside[0].counts == {"rows": BATCH * N_USR}
+    counts = Counter(s.name for s in rec)
+    assert counts["chain"] == 1 + N_ITERS + 1
+    mu = N_ITERS + 1 if alg == "mcnc_mu" else 0
+    assert counts["mu.precode"] == counts["mu.combine"] == mu
+    assert all(rec[s.parent].name == "rx.replica" for s in rec if s.name.startswith("mu."))
+
+
+def test_every_kernel_call_of_the_mu_frame_runs_inside_a_chain_span(monkeypatch):
+    """The two-user frame's chain calls (complex-ended: the TX and every
+    replica) each run with a ``chain`` span as the innermost one open."""
+    from mimo_ofdm_tpu_torch.ops import fused_chain
+
+    def probed(real):
+        def probe(*a, **kw):
+            with spans.span("probe"):
+                return real(*a, **kw)
+        return probe
+
+    for name in ("fused_ifft_pa_fft", "fused_ifft_pa_fft_complex", "fused_precoded_ifft_pa_fft"):
+        monkeypatch.setattr(fused_chain, name, probed(getattr(fused_chain, name)))
+    for alg in ("mcnc_mu", "cnc"):
+        rec = _mu_frame_with_spans(alg)[2]
         probes = [s for s in rec if s.name == "probe"]
         assert len(probes) == 1 + N_ITERS + 1
         assert all(rec[s.parent].name == "chain" for s in probes)
