@@ -14,6 +14,13 @@ Phases, each printing one JSON line:
    blocks per SM fails the phase; so does a bf16 instantiation off the
    tensor cores (no HMMA), with spills or under 2 blocks per SM, and an
    f32 one on them.
+   Before it, the antenna combine kernel (csrc/antenna_combine.cu): its
+   build, ptxas's report and each instantiation's resources (no spills, 4
+   blocks an SM), then its time at MCNC b512's [512, 64, 2048] and
+   LOS b32's [32, 64, 2048] bf16 planes beside its bound (the four planes
+   in, complex64 out, at 3.35 TB/s) and its plain version (the eager
+   expression it replaces), within 1e-5 relative L2 of it and the same
+   bits on a second call.
 3. kernel: the fused_pa kernel against its plain PyTorch version on the
    card (full/sc modes, f32/bf16 planes, every PA model, every n_fft, a
    ragged last block at every n_fft below 4096, one row and zero rows,
@@ -30,8 +37,10 @@ Phases, each printing one JSON line:
    Rayleigh channel: 64-QAM, n_fft 4096, n_sc 2048, 64-antenna ULA, MRT,
    soft limiter at IBO 0 dB, 8 CNC iterations, bf16 storage) through
    ``make_round_fn``: CNC and MCNC rounds at full width, with the kernel's
-   launch count checked against the path's launches and the counters
-   checked for sanity.
+   launch count checked against the path's launches, the combine kernel's
+   against its own (a TX launch and one a MCNC replica pass, a round, on
+   bf16 planar paths; none on other planes), and the counters checked for
+   sanity.
 5. frame: f32 frames at full width with fixed draws through the kernel and
    through the plain version forced on CUDA tensors: the Rayleigh frame,
    the canonical LOS planes, the complex64 branch, and the TDL and GSCM
@@ -140,10 +149,12 @@ Phases, each printing one JSON line:
    bf16 planes, the CNC replica pass interleaved), timed as in phase 6.
 
 Then the ``{"kernels": [...]}`` line, one row per I/O layout with the
-paths' launches in it, the nvidia-smi line, and as the last line
-``{"ok": true, "device": {...}}``. Any failed check raises, so the
-script exits non-zero without the last line; so does a machine with no
-CUDA device, or a directory without the package.
+paths' launches in it and one for the antenna combine kernel (its
+launches in the paths' timed rounds, which drive_path checks), the
+nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
+Any failed check raises, so the script exits non-zero without the last
+line; so does a machine with no CUDA device, or a directory without the
+package.
 """
 
 from __future__ import annotations
@@ -180,6 +191,7 @@ PLANES_LAYOUTS = ("planes_bf16", "planes_f32")
 PRECODED_LAYOUTS = ("precoded_bf16", "precoded_f32")
 RESULTS: dict = {}
 LAYOUT_LAUNCHES: dict = {}      # the paths' kernel launches by I/O layout, summed
+COMBINE_LAUNCHES = [0]          # the combine kernel's launches in drive_path's rounds
 
 
 def zero_launches(kern) -> None:
@@ -546,11 +558,17 @@ def canonical_cfg(config, alg: str, **changes):
 def drive_path(fp, link, phase: str, cfg, dev, batch: int, rounds: int, snr: float,
                warmup: int = 2, card: str = "") -> dict:
     """``rounds`` timed rounds of ``batch`` frames through make_round_fn
-    after ``warmup``, with the kernel's launch count zeroed just before the
-    timed rounds and read just after. Fails unless the launches equal the
-    path's count (a TX launch and one launch per replica pass a round) and
-    the counters are sane: every BER in [0, 0.5), the clean BER below
-    iteration 0's, and for MCNC iteration 8 no worse than iteration 0."""
+    after ``warmup``, with the kernels' launch counts zeroed just before the
+    timed rounds and read just after. Fails unless the fused kernel's
+    launches equal the path's count (a TX launch and one launch per replica
+    pass a round), the combine kernel's equal its count (a TX launch, and
+    one per MCNC replica pass, a round of the planar path on bf16 planes;
+    none on other planes or off that path), and the counters are sane: every
+    BER in [0, 0.5), the clean BER below iteration 0's, and for MCNC
+    iteration 8 no worse than iteration 0."""
+    from mimo_ofdm_tpu_torch.kernels import antenna_combine as ac
+    from mimo_ofdm_tpu_torch.models import link_planar
+
     kern = fp.fused_ifft_pa_fft
     alg = cfg.rx.algorithm
     round_fn = link.make_round_fn(cfg, N_ITERS, batch, device=dev)
@@ -558,6 +576,7 @@ def drive_path(fp, link, phase: str, cfg, dev, batch: int, rounds: int, snr: flo
         round_fn(0, 10_000 + i, snr)
     torch.cuda.synchronize()
     zero_launches(kern)
+    ac.antenna_combine.launches = 0
     t0 = time.perf_counter()
     total = torch.zeros(N_ITERS + 2, dtype=torch.int64, device=dev)
     for i in range(rounds):
@@ -565,14 +584,20 @@ def drive_path(fp, link, phase: str, cfg, dev, batch: int, rounds: int, snr: flo
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches(kern)
+    combines = ac.antenna_combine.launches
+    COMBINE_LAUNCHES[0] += combines
     counts = total.cpu().tolist()
     expected = rounds * (1 + N_ITERS + 1)
+    bf16_planar = cfg.channel_storage == "bfloat16" and link_planar.planar_eligible(cfg)
+    expected_combines = (rounds * (1 + (N_ITERS + 1 if alg == "mcnc" else 0))
+                         if bf16_planar else 0)
     n_bits = rounds * batch * cfg.modem.n_bits_per_ofdm_sym
     ber = [c / n_bits for c in counts]
     line = {"alg": alg, "channel": cfg.channel.model, "storage": cfg.channel_storage,
             "mxu_storage": cfg.mxu_fft_storage, "batch": batch, "rounds": rounds,
             "snr_db": snr, "counters": counts, "ber": ber, "launches": launches,
             "expected_launches": expected, "launches_per_round": launches / rounds,
+            "combine_launches": combines, "expected_combine_launches": expected_combines,
             "launches_by_layout": dict(kern.launches_by_layout),
             "seconds": dt, "frames_per_s": rounds * batch / dt,
             "kernel_rows_per_frame": cfg.array.n_elements + (N_ITERS + 1) * (
@@ -580,6 +605,9 @@ def drive_path(fp, link, phase: str, cfg, dev, batch: int, rounds: int, snr: flo
     print(json.dumps({"phase": phase, **line}), flush=True)
     if launches != expected:
         raise AssertionError(f"{phase} {alg}: {launches} kernel launches, expected {expected}")
+    if combines != expected_combines:
+        raise AssertionError(f"{phase} {alg}: {combines} combine kernel launches, expected "
+                             f"{expected_combines}")
     if not all(0 <= b < 0.5 for b in ber) or not ber[0] < ber[1]:
         raise AssertionError(f"{phase} {alg}: insane counters {counts}")
     # MCNC cancels the clipping noise; CNC's single-PA replica does not
@@ -2302,6 +2330,78 @@ def timing(fp, ofdm, dev, batch: int, card: str = "", n_fft: int = 4096,
     return out
 
 
+# frames of the combine kernel's timing shapes: MCNC b512's pass and LOS b32's
+COMBINE_FRAMES = (512, 32)
+COMBINE_TOL = 1e-5              # relative L2 of the combine kernel against the eager one
+
+
+def combine_build(ac) -> dict:
+    """The antenna combine kernel's build (``csrc/antenna_combine.cu``):
+    ptxas's report and each instantiation's resources. Fails if one spills
+    or holds fewer than 4 blocks an SM."""
+    t0 = time.perf_counter()
+    _, ptxas = ac.build_library()
+    seconds = time.perf_counter() - t0
+    print(ptxas, flush=True)
+    resources = ac.kernel_resources()
+    line = {"seconds": seconds, "instantiations": resources}
+    emit("combine_build", **line)
+    check(all(r["local_bytes"] == 0 and r["blocks_per_sm"] >= 4 for r in resources),
+          "combine kernel: no spills, 4 blocks an SM", line, "combine_build")
+    return line
+
+
+def combine_timing(ac, dev, card: str = "", n_ant: int = 64, n_sc: int = 2048) -> dict:
+    """The antenna combine kernel at MCNC b512's and LOS b32's TX shapes,
+    ``[B, n_ant, n_sc]`` bf16 planes: CUDA events and graph replay of the
+    kernel and of its plain version (the eager expression it replaces),
+    the bound (the four planes in, complex64 out, at 3.35 TB/s) and the
+    kernel's error against the plain version. Fails unless it agrees
+    within ``COMBINE_TOL`` relative L2 (the float32 sum's order alone
+    differs) and two calls give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    out = {}
+    for frames in COMBINE_FRAMES:
+        p = [(torch.randn(frames, n_ant, n_sc, generator=g, device=dev) / 8).bfloat16()
+             for _ in range(4)]
+        got, again = ac.antenna_combine(*p), ac.antenna_combine(*p)
+        ref = ac.antenna_combine_plain(*p)
+        torch.cuda.synchronize()
+        n_bytes = 4 * frames * n_ant * n_sc * 2 + frames * n_sc * 8
+        ms = time_ms(lambda: ac.antenna_combine(*p))
+        line = {"shape": [frames, n_ant, n_sc], "ms": ms,
+                "graph_ms": graph_ms(lambda: ac.antenna_combine(*p)),
+                "plain_ms": time_ms(lambda: ac.antenna_combine_plain(*p)),
+                "plain_graph_ms": graph_ms(lambda: ac.antenna_combine_plain(*p)),
+                "bytes": n_bytes, "bound_ms": n_bytes / H100_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+                "rel_err": rel_err(got, ref), "max_abs_err": float((got - ref).abs().max()),
+                "deterministic": bool(torch.equal(got, again)), "card": card}
+        line["bound_share"] = line["bound_ms"] / ms
+        line["graph_bound_share"] = line["bound_ms"] / line["graph_ms"]
+        print(json.dumps({"phase": "combine_timing", **line}), flush=True)
+        check(line["rel_err"] <= COMBINE_TOL and line["deterministic"]
+              and bool(torch.isfinite(got).all()),
+              f"combine kernel at [{frames}, {n_ant}, {n_sc}] against its plain version",
+              line, "combine_timing")
+        out[f"combine_b{frames}"] = line
+    return out
+
+
+def combine_row(build: dict, times: dict, smi: str) -> dict:
+    """The combine kernel's row of the ``{"kernels": [...]}`` line: its
+    launches in the paths' timed rounds (drive_path) and its times at MCNC
+    b512's pass."""
+    t = times[f"combine_b{COMBINE_FRAMES[0]}"]
+    return {"name": "antenna_combine", "route": "cuda",
+            "source": "mimo_ofdm_tpu_torch/csrc/antenna_combine.cu", "replaces": None,
+            "launches": COMBINE_LAUNCHES[0],
+            "registers": [r["registers"] for r in build["instantiations"]],
+            **{f: t[f] for f in ("shape", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                                 "bound_share", "rel_err", "max_abs_err")},
+            "shapes": times, "card": smi}
+
+
 def kernels_line(paths: dict, times: dict, analysis_times: dict, smi: str) -> dict:
     """The ``{"kernels": [...]}`` line: one row per I/O layout of the
     kernel, with the launches the paths made in it (``LAYOUT_LAUNCHES``)
@@ -2420,6 +2520,10 @@ def main() -> int:
     if wrong:
         raise AssertionError(f"instantiations off their design: {wrong}")
 
+    from mimo_ofdm_tpu_torch.kernels import antenna_combine as ac
+    combine = combine_build(ac)
+    combine_times = combine_timing(ac, dev, smi)
+
     emit("kernel_summary", **kernel_checks(fp, dev))
     snr_los = float(metrics.ebn0_to_snr(CANONICAL_EBN0_DB, 2048, 2048, 64))
     paths = main_path(fp, config, link, dev, args.batch, args.rounds, smi)
@@ -2440,10 +2544,12 @@ def main() -> int:
     paths.update(bench_phase(fp, bench, dev, paths, smi))
     times.update(bench_shapes(fp, ofdm, dev, paths["bench"]["settings"], smi))
     kernels = kernels_line(paths, times, analysis_times, smi)
+    kernels["kernels"].append(combine_row(combine, combine_times, smi))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"results": RESULTS, "main_path": paths, "timing": times,
+                       "combine_timing": combine_times,
                        "analysis_timing": analysis_times, **kernels}, f, indent=1,
                       default=str)
     print(json.dumps(kernels), flush=True)

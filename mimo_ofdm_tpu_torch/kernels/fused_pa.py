@@ -59,20 +59,17 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
 import math
 import os
 import re
-import shutil
 import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from mimo_ofdm_tpu_torch.kernels import build
 from mimo_ofdm_tpu_torch.ops import ofdm
 from mimo_ofdm_tpu_torch.ops.pa import PA_MODELS, apply_pa_planar
-from mimo_ofdm_tpu_torch.utils.spans import spanned
 
 MODES = ("full", "sc")
 STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -84,11 +81,7 @@ LAYOUTS = {"planes_f32": ("planes", False), "planes_bf16": ("planes", True),
            "precoded_f32": ("precoded", False), "precoded_bf16": ("precoded", True)}
 N = 4096             # the one length fused_ifft_clip_fft takes, as the TPU kernel
 N_FFT_RANGE = (256, 4096)
-_PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PACKAGE_DIR / "csrc" / "fused_pa.cu"
-BUILD_DIR = _PACKAGE_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = build.PACKAGE_DIR / "csrc" / "fused_pa.cu"
 
 
 def check_shapes(n_fft: int, n_io: int, mode: str) -> None:
@@ -148,51 +141,20 @@ def fused_ifft_pa_fft_plain(xr, xi, sat, cubic_coeff, *, pa_model: str,
     return fd.real.to(xr.dtype), fd.imag.to(xi.dtype)
 
 
-def _nvcc() -> str:
-    cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-             shutil.which("nvcc")]
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the fused_pa kernel "
-                       "is built from csrc/fused_pa.cu at first use")
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fused_ifft_pa_fft_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                                             ci, ci, ci, ci, cf, cf, cf, vp]
+    lib.fused_ifft_pa_fft_launch.restype = ci
+    lib.fused_ifft_pa_fft_attributes.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
+    lib.fused_ifft_pa_fft_attributes.restype = ci
 
 
-def _library_path() -> tuple[str, Path]:
-    """The source version's digest and the library built from it."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return digest, BUILD_DIR / f"libfused_pa_{digest}.so"
-
-
-@functools.lru_cache(maxsize=None)
-@spanned("setup.kernel_library")
 def build_library() -> tuple[ctypes.CDLL, str]:
     """Compile ``csrc/fused_pa.cu`` for sm_90a (once per source version)
-    and load it. Returns the library and ptxas's register/shared-memory
-    report."""
-    digest, so = _library_path()
-    report_path = so.with_suffix(".ptxas.txt")
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f"libfused_pa_{digest}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
-        report_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    fn = lib.fused_ifft_pa_fft_launch
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf,
-                   cf, cf, vp]
-    fn.restype = ci
-    attrs = lib.fused_ifft_pa_fft_attributes
-    attrs.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
-    attrs.restype = ci
-    report = report_path.read_text() if report_path.exists() else ""
-    return lib, report
+    and load it (once a process, ``kernels/build.py``). Returns the library
+    and ptxas's register/shared-memory report."""
+    return build.load_library(SOURCE, _declare)
 
 
 def kernel_resources() -> list[dict]:
@@ -233,8 +195,8 @@ def sass_mma_counts() -> dict:
     """``(n_fft, mode, layout) -> `` the number of tensor-core instructions
     (``HMMA``, ``HGMMA``) in each instantiation's SASS, from ``cuobjdump
     -sass`` of the built library (the CUDA toolkit's, beside ``nvcc``)."""
-    _, so = _library_path()
-    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    _, so = build.library_path(SOURCE)
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
                           check=True).stdout
     out = {}

@@ -18,6 +18,9 @@ per-antenna gains ``[B, n_ant]``.
   one launch of the fused CUDA kernel (``kernels/fused_pa.py``), whose load
   computes the MRT precode ``s o V`` from the symbols and the precoder's
   planes; the CNC replica runs the chain over ``B`` rows.
+* The antenna combine ``sum_ant H o X`` after the chain is one launch of
+  the combine kernel (``kernels/antenna_combine.py``) on bf16 planes on
+  CUDA, and the eager expression on any other planes.
 
 Randoms: JAX's threefry stream cannot be reproduced, so a frame takes its
 randoms as a :class:`FrameDraws` -- drawn from a ``torch.Generator`` on the
@@ -36,6 +39,7 @@ import math
 
 import torch
 
+from mimo_ofdm_tpu_torch.kernels.antenna_combine import antenna_combine, antenna_combine_plain
 from mimo_ofdm_tpu_torch.models import channels, receivers, transmit
 from mimo_ofdm_tpu_torch.models.geometry import C_LIGHT
 from mimo_ofdm_tpu_torch.models.link import (FrameCounters, FrameDraws,
@@ -217,6 +221,10 @@ def _build_planar_frame_fn(cfg: LinkConfig, n_iters: int, incl_clean: bool,
     def f32sum(x, dim):
         return x.sum(dim, dtype=torch.float32)
 
+    # the combine kernel takes bf16 planes on CUDA; other planes combine eagerly
+    kernel_combine = st == torch.bfloat16 and dev.type == "cuda"
+    combine = antenna_combine if kernel_combine else antenna_combine_plain
+
     def draw(batch: int, generator: torch.Generator) -> FrameDraws:
         return FrameDraws.draw(cfg, batch, generator, st, reroll=reroll)
 
@@ -296,9 +304,9 @@ def _build_planar_frame_fn(cfg: LinkConfig, n_iters: int, incl_clean: bool,
                     cubic_coeff=toi_coeff[:, None], rapp_p=cfg.pa.rapp_p_hardness,
                     storage=storage)
             # propagate: sum_ant H o X (reference/channel.py:74-89), f32 accum
-            with span("tx.combine"):
-                return torch.complex(f32sum(hr * fr - hi * fi, -2),
-                                     f32sum(hr * fi + hi * fr, -2))
+            with (span("tx.combine", combined=sym.shape[0] if kernel_combine else 0)
+                  if enabled() else OFF):
+                return combine(hr, hi, fr, fi)
 
         bits_d = draws.bits_d.to(dev)
         sym_d = transmit.modulate_users(bits_d, m)

@@ -87,12 +87,12 @@ NAME_MAP = {
         "digit-swapped sample blocks reach the PA outside the kernel",
     "ops/ldpc.py::decode(fusion_barrier)": "an XLA fusion hint",
     "utils/compile_cache.py::DEFAULT_CACHE_DIR":
-        "`kernels/fused_pa.py::BUILD_DIR`: the port compiles one library, into the "
-        "package's `_build/`",
+        "`kernels/build.py::BUILD_DIR`: the port compiles its kernels' libraries "
+        "into the package's `_build/`",
     "utils/compile_cache.py::enable_persistent_cache(min_compile_time_secs)":
-        "XLA's cache threshold; the port caches one `nvcc` build",
+        "XLA's cache threshold; the port caches its `nvcc` builds",
     "utils/compile_cache.py::enable_persistent_cache(min_entry_size_bytes)":
-        "XLA's cache threshold; the port caches one `nvcc` build",
+        "XLA's cache threshold; the port caches its `nvcc` builds",
 }
 
 

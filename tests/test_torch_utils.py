@@ -19,7 +19,7 @@ from mimo_ofdm_tpu.utils import baseline_cpu as j_baseline
 from mimo_ofdm_tpu.utils import progress as j_progress
 from mimo_ofdm_tpu.utils.config import LinkConfig as JLinkConfig
 
-from mimo_ofdm_tpu_torch.kernels import fused_pa
+from mimo_ofdm_tpu_torch.kernels import build
 from mimo_ofdm_tpu_torch.utils import baseline_cpu, compile_cache, profiling, progress, spans
 from mimo_ofdm_tpu_torch.utils.config import LinkConfig
 
@@ -241,21 +241,21 @@ def test_compile_cache_redirects_the_kernel_build(tmp_path, monkeypatch):
     else at ``$MIMO_OFDM_TPU_TORCH_COMPILE_CACHE``; an ``off`` value
     disables it and keeps the default; with neither it leaves the default
     ``mimo_ofdm_tpu_torch/_build/`` in place."""
-    default = fused_pa.BUILD_DIR
-    assert default == fused_pa._PACKAGE_DIR / "_build"
-    monkeypatch.setattr(fused_pa, "BUILD_DIR", default)
+    default = build.BUILD_DIR
+    assert default == build.PACKAGE_DIR / "_build"
+    monkeypatch.setattr(build, "BUILD_DIR", default)
     monkeypatch.delenv(compile_cache.ENV_VAR, raising=False)
     assert compile_cache.enable_persistent_cache() == str(default)
-    assert fused_pa.BUILD_DIR == default
+    assert build.BUILD_DIR == default
     for off in ("off", "0", "None", "disabled"):
         monkeypatch.setenv(compile_cache.ENV_VAR, off)
         assert compile_cache.enable_persistent_cache(str(tmp_path)) is None
-        assert fused_pa.BUILD_DIR == default
+        assert build.BUILD_DIR == default
     monkeypatch.setenv(compile_cache.ENV_VAR, str(tmp_path / "env"))
     assert compile_cache.enable_persistent_cache() == str(tmp_path / "env")
-    assert fused_pa.BUILD_DIR == tmp_path / "env"
+    assert build.BUILD_DIR == tmp_path / "env"
     assert compile_cache.enable_persistent_cache(str(tmp_path / "arg")) == str(tmp_path / "arg")
-    assert fused_pa.BUILD_DIR == tmp_path / "arg"
+    assert build.BUILD_DIR == tmp_path / "arg"
 
 
 def test_wallclock_trace_and_throughput_meter(tmp_path, capsys):
