@@ -206,6 +206,13 @@ def add_layout_launches(counts: dict) -> None:
         LAYOUT_LAUNCHES[layout] = LAYOUT_LAUNCHES.get(layout, 0) + n
 
 
+def routed(plain: bool):
+    """Inside the ``with`` block: the plain version of every kernel where
+    ``plain``, else the kernels."""
+    from mimo_ofdm_tpu_torch import kernels
+    return kernels.plain_versions() if plain else contextlib.nullcontext()
+
+
 def read_launches(kern) -> int:
     """The kernel's launches since :func:`zero_launches`, all made by a path
     of the run: their split by layout goes into ``LAYOUT_LAUNCHES``."""
@@ -650,12 +657,11 @@ def los_paths(fp, config, link, dev, batch: int, rounds: int, snr: float,
     return out
 
 
-def frame_kernel_vs_plain(fp, config, link, dev, snr_los: float, batch: int = 2) -> dict:
+def frame_kernel_vs_plain(config, link, dev, snr_los: float, batch: int = 2) -> dict:
     """Phase 5: f32 frames at full width with fixed draws, through the
     kernel and through the plain version forced on CUDA tensors: bench.py's
     Rayleigh frame (SNR 15 dB), the canonical LOS planes, the complex64
     branch on LOS, and the TDL and GSCM channels (Eb/N0 15 dB)."""
-    kern = fp.fused_ifft_pa_fft
     frames = {}
     for alg in ("cnc", "mcnc"):
         frames[f"rayleigh_{alg}"] = (bench_rayleigh_cfg(config, alg, "float32"), 15.0)
@@ -673,11 +679,8 @@ def frame_kernel_vs_plain(fp, config, link, dev, snr_los: float, batch: int = 2)
         draws = link.FrameDraws.draw(cfg, batch, torch.Generator(device=dev).manual_seed(7))
         got = {}
         for plain in (False, True):
-            kern.force_plain = plain
-            try:
+            with routed(plain):
                 c = frame(snr, draws)
-            finally:
-                kern.force_plain = False
             got[plain] = [c.clean_err.cpu().tolist(), c.dist_err.cpu().tolist()]
         line = {"frame": name, "alg": cfg.rx.algorithm, "batch": batch, "snr_db": snr,
                 "kernel": got[False], "plain": got[True], "equal": got[False] == got[True]}
@@ -828,10 +831,9 @@ def drive_mu_path(fp, link_mu, name: str, cfg, sep: bool, dev, batch: int, round
     return line
 
 
-def mu_kernel_vs_plain(fp, config, link_mu, dev, snr: float, batch: int = 2) -> dict:
+def mu_kernel_vs_plain(config, link_mu, dev, snr: float, batch: int = 2) -> dict:
     """f32 multi-user frames with fixed draws through the kernel and through
     the plain version forced on CUDA tensors: the counters must be equal."""
-    kern = fp.fused_ifft_pa_fft
     pos = link_mu.default_user_positions()
     res = {}
     for name, (prec, alg, sep) in MU_PATHS.items():
@@ -843,11 +845,8 @@ def mu_kernel_vs_plain(fp, config, link_mu, dev, snr: float, batch: int = 2) -> 
                                           sep_carriers=sep)
         got = {}
         for plain in (False, True):
-            kern.force_plain = plain
-            try:
+            with routed(plain):
                 c = frame(snr, draws)
-            finally:
-                kern.force_plain = False
             got[plain] = [c.clean_err.cpu().tolist(), c.dist_err.cpu().tolist()]
         line = {"frame": f"mu_{name}", "batch": batch, "snr_db": snr, "kernel": got[False],
                 "plain": got[True], "equal": got[False] == got[True]}
@@ -915,7 +914,7 @@ def multiuser(fp, config, link_mu, results, ber_sweeps, dev, batch: int, snr: fl
     for name, (prec, alg, sep) in MU_PATHS.items():
         out[f"mu_{name}"] = drive_mu_path(fp, link_mu, name, mu_cfg(config, prec, alg), sep,
                                           dev, batch, 2, snr, card)
-    mu_kernel_vs_plain(fp, config, link_mu, dev, snr)
+    mu_kernel_vs_plain(config, link_mu, dev, snr)
     out["mu_sweep"] = mu_sweep(fp, results, ber_sweeps, dev, batch, card)
     return out
 
@@ -967,12 +966,11 @@ def drive_coded(fp, profiling, name: str, round_fn, n_iters: int, payload_bits: 
     return line
 
 
-def coded_kernel_vs_plain(fp, link, link_ldpc, ber_sweeps, dev, snr: float,
+def coded_kernel_vs_plain(link, link_ldpc, ber_sweeps, dev, snr: float,
                           batch: int = 2, n_ant: int = 64, small: bool = False) -> dict:
     """f32 coded frames of ldpc_ref_ber's configuration with fixed draws,
     through the kernel and through the plain version forced on CUDA
     tensors: the counters must be equal."""
-    kern = fp.fused_ifft_pa_fft
     res = {}
     for alg in ("cnc", "mcnc"):
         cfg = ber_sweeps.coded_link_config("los", alg, n_ant, 0.0, small).replace(
@@ -984,11 +982,8 @@ def coded_kernel_vs_plain(fp, link, link_ldpc, ber_sweeps, dev, snr: float,
                                      n_bits=chain.a)
         got = {}
         for plain in (False, True):
-            kern.force_plain = plain
-            try:
+            with routed(plain):
                 c = frame(snr, draws)
-            finally:
-                kern.force_plain = False
             got[plain] = [x.cpu().tolist() for x in c]
         line = {"frame": f"coded_{alg}", "batch": batch, "snr_db": snr, "kernel": got[False],
                 "plain": got[True], "equal": got[False] == got[True]}
@@ -1076,7 +1071,7 @@ def coded(fp, link, link_ldpc, profiling, results, ber_sweeps, metrics, dev, car
     rf = link_ldpc.make_coded_round_fn(cfg, N_ITERS, batch, code, ldpc_iters=25, device=dev)
     out["coded_ira"] = drive_coded(fp, profiling, "ira_cnc", rf, N_ITERS, code.k, False, dev,
                                    batch, snr1, card)
-    coded_kernel_vs_plain(fp, link, link_ldpc, ber_sweeps, dev, snr5, n_ant=n_ant, small=small)
+    coded_kernel_vs_plain(link, link_ldpc, ber_sweeps, dev, snr5, n_ant=n_ant, small=small)
     out["coded_sweep"] = coded_sweep(fp, results, ber_sweeps, dev, batch, card, n_ant, small)
     return out
 
@@ -1367,12 +1362,11 @@ def experiments_check(fp, misc_evals, siso_checks, spatial, dev, card, n_ant=64,
             "seconds": seconds, "experiments": per, "card": card}
 
 
-def analysis_kernel_vs_plain(fp, config, an, siso_checks, dev, n_ant=64, small=False) -> dict:
+def analysis_kernel_vs_plain(config, an, siso_checks, dev, n_ant=64, small=False) -> dict:
     """(f) an f32 LOS radiation pattern (18 points, 10 snapshots) through
     the kernel and through the plain version forced on CUDA tensors, on the
     same draws: powers within 1e-5 of the peak, PSDs within 1e-4 of theirs;
     and one SISO CNC frame batch with equal counters."""
-    kern = fp.fused_ifft_pa_fft
     n_fft, n_sc = (256, 128) if small else (4096, 2048)
     cfg = config.LinkConfig(modem=config.ModemConfig(n_fft=n_fft, n_sub_carr=n_sc),
                             array=config.ArrayConfig(n_elements=n_ant),
@@ -1383,13 +1377,10 @@ def analysis_kernel_vs_plain(fp, config, an, siso_checks, dev, n_ant=64, small=F
                                             False, dev)
     got = {}
     for plain in (False, True):
-        kern.force_plain = plain
-        try:
+        with routed(plain):
             r = an.radiation_pattern(cfg, seed=3, n_points=18, n_snapshots=10,
                                      n_samp_per_seg=min(1024, n_fft // 4), device=dev)
             c = [x.cpu().tolist() for x in frame(25.0, siso)]
-        finally:
-            kern.force_plain = False
         got[plain] = (r, c)
     (k, kc), (p, pc) = got[False], got[True]
 
@@ -1559,7 +1550,7 @@ def analysis(fp, config, results, dev, card: str = "", n_ant: int = 64,
     out["analysis_siso"] = siso_check(fp, results, siso_checks, dev, card, small)
     out["analysis_experiments"] = experiments_check(fp, misc_evals, siso_checks, spatial, dev,
                                                     card, n_ant, small)
-    analysis_kernel_vs_plain(fp, config, an, siso_checks, dev, n_ant, small)
+    analysis_kernel_vs_plain(config, an, siso_checks, dev, n_ant, small)
     for name, p in out.items():          # (g)
         check(p["launches"] > 0 and p["launches"] == p["expected_launches"],
               f"{name} launches", {"launches": p["launches"],
@@ -1663,6 +1654,7 @@ def scale_out_rank(rank: int, world: int, port: int, outdir: str, dev_type: str,
 
     import torch.distributed as dist
 
+    from mimo_ofdm_tpu_torch import kernels
     from mimo_ofdm_tpu_torch.kernels import fused_pa as fp
     from mimo_ofdm_tpu_torch.parallel import multihost, sharded
     from mimo_ofdm_tpu_torch.utils import config
@@ -1672,7 +1664,7 @@ def scale_out_rank(rank: int, world: int, port: int, outdir: str, dev_type: str,
                          backend="gloo", timeout=timedelta(seconds=120))
     try:
         kern = fp.fused_ifft_pa_fft
-        out = {"rank": rank, "force_plain": kern.force_plain}
+        out = {"rank": rank, "plain_versions": not kernels.runs_kernel(torch.device("cuda"))}
         meshes = {"dp2": sharded.make_mesh(n_dp=2), "tp2": sharded.make_mesh(n_tp=2)}
         for axis, channel, snr, storage in (("dp2", "rayleigh", snr_ray, {}),
                                             ("tp2", "los", snr_los,
@@ -1768,7 +1760,7 @@ def two_ranks(fp, config, link, dev, batch: int, snr_ray: float, snr_los: float,
                                            for a, b in zip(got[0], w)):
             raise AssertionError(f"scale_out {k}: {got[0]} beyond tolerance of {w}")
         launches = [r[k]["launches"] for r in ranks]
-        if launches != [1 + N_ITERS + 1] * 2 or any(r["force_plain"] for r in ranks):
+        if launches != [1 + N_ITERS + 1] * 2 or any(r["plain_versions"] for r in ranks):
             raise AssertionError(f"scale_out {k}: rank launches {launches}, expected 10")
     return line
 
@@ -2527,7 +2519,7 @@ def main() -> int:
     emit("kernel_summary", **kernel_checks(fp, dev))
     snr_los = float(metrics.ebn0_to_snr(CANONICAL_EBN0_DB, 2048, 2048, 64))
     paths = main_path(fp, config, link, dev, args.batch, args.rounds, smi)
-    frame_kernel_vs_plain(fp, config, link, dev, snr_los)
+    frame_kernel_vs_plain(config, link, dev, snr_los)
     times = timing(fp, ofdm, dev, args.batch, smi)
     paths.update(los_paths(fp, config, link, dev, args.batch, args.los_rounds, snr_los, smi))
     paths["sweep"] = sweep(fp, config, results, ber_sweeps, dev, args.batch, smi)

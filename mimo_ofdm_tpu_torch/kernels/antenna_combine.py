@@ -1,26 +1,29 @@
-"""The planar transmitter's antenna combine ``sum_ant H o X`` over bf16 planes:
-the CUDA kernel of ``csrc/antenna_combine.cu`` and its plain PyTorch
-version.
+"""The planar transmitter's antenna combine ``sum_ant H o X``: the CUDA
+kernel of ``csrc/antenna_combine.cu`` over bf16 planes, and its plain
+PyTorch version.
 
 :func:`antenna_combine` takes the channel's planes ``hr``/``hi`` and the
 fused chain's output planes ``fr``/``fi``, ``[B, n_ant, n_sc]`` bfloat16
-each, and returns the complex64 ``[B, n_sc]`` sum over the antennas
-(``reference/channel.py:74-89``). Each term is rounded as the eager
-expression :func:`antenna_combine_plain` rounds it (each bf16 product, then
-their bf16 difference or sum), and the terms are summed in float32; only
-the order of that sum may differ (the kernel's: each subcarrier in one
-thread, antenna 0 first, ``csrc/antenna_combine.cu``), so the kernel gives
-the same bits on every run and for every batch the frames come in.
+or float32 each, and returns the complex64 ``[B, n_sc]`` sum over the
+antennas (``reference/channel.py:74-89``). On bf16 planes each term is
+rounded as the eager expression :func:`antenna_combine_plain` rounds it
+(each bf16 product, then their bf16 difference or sum), and the terms are
+summed in float32; only the order of that sum may differ (the kernel's:
+each subcarrier in one thread, antenna 0 first, ``csrc/antenna_combine.cu``),
+so the kernel gives the same bits on every run and for every batch the
+frames come in. float32 planes always take the eager expression, at any
+strides.
 
-Rows must be contiguous (antenna stride ``n_sc``, subcarrier stride 1);
-the frames of a pair of planes may be ``n_ant * n_sc`` apart or share one
-plane (batch stride 0, an ``expand``ed channel), which the kernel reads as
-it is, without a copy.
+The rows of bf16 planes must be contiguous (antenna stride ``n_sc``,
+subcarrier stride 1); the frames of a pair of planes may be ``n_ant *
+n_sc`` apart or share one plane (batch stride 0, an ``expand``ed channel),
+which the kernel reads as it is, without a copy.
 
-For a CUDA tensor the wrapper launches the kernel (built with ``nvcc`` at
-first use and loaded with ``ctypes``, ``kernels/build.py``) or raises; for
-a CPU tensor it runs :func:`antenna_combine_plain`. Launches count in
-``antenna_combine.launches``.
+For bf16 CUDA tensors the wrapper launches the kernel (built with ``nvcc``
+at first use and loaded with ``ctypes``, ``kernels/build.py``) or raises;
+for CPU tensors, or inside ``kernels.plain_versions()``, it runs
+:func:`antenna_combine_plain` (:func:`mimo_ofdm_tpu_torch.kernels.runs_kernel`
+decides). Launches count in ``antenna_combine.launches``.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import ctypes
 
 import torch
 
-from mimo_ofdm_tpu_torch.kernels import build
+from mimo_ofdm_tpu_torch.kernels import build, runs_kernel
 
 SOURCE = build.PACKAGE_DIR / "csrc" / "antenna_combine.cu"
 VEC = 8              # subcarriers a thread, when rows are 16-byte aligned
@@ -95,28 +98,30 @@ def _batch_stride(re: torch.Tensor, im: torch.Tensor, names: str) -> int:
 
 def antenna_combine(hr: torch.Tensor, hi: torch.Tensor, fr: torch.Tensor,
                     fi: torch.Tensor) -> torch.Tensor:
-    """``sum_ant H o X`` for bf16 planes ``[B, n_ant, n_sc]`` (see the module
-    docstring): complex64 ``[B, n_sc]``. One launch for CUDA tensors (counted
-    in ``antenna_combine.launches``), :func:`antenna_combine_plain` for CPU
-    tensors. Raises for other dtypes, shapes or devices that differ, rows
-    that are not contiguous, or a batch stride other than 0 or
-    ``n_ant * n_sc``."""
-    bf16 = torch.bfloat16
-    if not hr.dtype == hi.dtype == fr.dtype == fi.dtype == bf16:
-        raise ValueError(f"the planes must be bfloat16, got {hr.dtype}, {hi.dtype}, "
-                         f"{fr.dtype}, {fi.dtype}")
+    """``sum_ant H o X`` for planes ``[B, n_ant, n_sc]``, all bfloat16 or all
+    float32 (see the module docstring): complex64 ``[B, n_sc]``. One launch
+    for bf16 planes where :func:`runs_kernel` says so (counted in
+    ``antenna_combine.launches``), :func:`antenna_combine_plain` otherwise.
+    Raises for other dtypes, shapes or devices that differ, and for bf16
+    planes whose rows are not contiguous, whose batch stride is other than
+    0 or ``n_ant * n_sc``, or whose device has no kernel."""
+    dtype = hr.dtype
+    if (dtype not in (torch.bfloat16, torch.float32)
+            or not hi.dtype == fr.dtype == fi.dtype == dtype):
+        raise ValueError("the planes must be all bfloat16 or all float32, got "
+                         f"{hr.dtype}, {hi.dtype}, {fr.dtype}, {fi.dtype}")
     shape, device = hr.shape, hr.device
     if len(shape) != 3 or not hi.shape == fr.shape == fi.shape == shape:
         raise ValueError("the four planes must share one shape [B, n_ant, n_sc], got "
                          f"{[tuple(t.shape) for t in (hr, hi, fr, fi)]}")
     if not hi.device == fr.device == fi.device == device:
         raise ValueError("the four planes must share a device")
+    if dtype == torch.float32:          # no kernel: the eager expression, any strides
+        return antenna_combine_plain(hr, hi, fr, fi)
     h_stride = _batch_stride(hr, hi, "hr and hi")
     x_stride = _batch_stride(fr, fi, "fr and fi")
-    if device.type == "cpu":
+    if not runs_kernel(device):
         return antenna_combine_plain(hr, hi, fr, fi)
-    if device.type != "cuda":
-        raise ValueError(f"no kernel for device {device}")
     frames, n_ant, n_sc = shape
     out = torch.empty(frames, n_sc, dtype=torch.complex64, device=device)
     if out.numel() == 0:

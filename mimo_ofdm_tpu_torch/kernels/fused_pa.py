@@ -34,15 +34,13 @@ precoded layouts), bit for bit what :func:`precode_planes` followed by
 
 For a CUDA tensor the wrappers launch the kernel (built with ``nvcc`` at
 first use into ``mimo_ofdm_tpu_torch/_build/`` and loaded with ``ctypes``)
-or raise. For a CPU tensor they run the layout's plain version:
-:func:`fused_ifft_pa_fft_plain` (exact float32 transforms) for the float32
-layouts, :func:`fused_ifft_pa_fft_bf16` (the tensor-core passes, their
-bf16 rounding points and float32 sums) for the bf16 ones. Both count
-kernel launches in ``fused_ifft_pa_fft.launches``, and by I/O layout
-(:data:`LAYOUTS`) in ``fused_ifft_pa_fft.launches_by_layout``; setting
-``fused_ifft_pa_fft.force_plain = True`` runs the plain versions on CUDA
-tensors too, for comparing the two inside a whole frame (tests and
-``chip_smoke.py`` only).
+or raise. For a CPU tensor, or inside ``kernels.plain_versions()``, they
+run the layout's plain version (:func:`mimo_ofdm_tpu_torch.kernels.runs_kernel`
+decides): :func:`fused_ifft_pa_fft_plain` (exact float32 transforms) for
+the float32 layouts, :func:`fused_ifft_pa_fft_bf16` (the tensor-core
+passes, their bf16 rounding points and float32 sums) for the bf16 ones.
+Kernel launches count in ``fused_ifft_pa_fft.launches``, and by I/O layout
+(:data:`LAYOUTS`) in ``fused_ifft_pa_fft.launches_by_layout``.
 
 :func:`fused_ifft_pa_fft_staged` is a PyTorch model of the kernel's own
 schedule (the radix-16 passes, the twiddle table, the shared-memory
@@ -67,7 +65,7 @@ import subprocess
 import numpy as np
 import torch
 
-from mimo_ofdm_tpu_torch.kernels import build
+from mimo_ofdm_tpu_torch.kernels import build, runs_kernel
 from mimo_ofdm_tpu_torch.ops import ofdm
 from mimo_ofdm_tpu_torch.ops.pa import PA_MODELS, apply_pa_planar
 
@@ -635,29 +633,32 @@ def _row_param(v, lead, device) -> torch.Tensor:
                               lead).contiguous()
 
 
-def _check_call(pa_model: str, n_fft: int, n_io: int, mode: str, device) -> None:
-    if pa_model not in PA_MODELS:
-        raise ValueError(f"unknown PA model {pa_model!r}")
-    check_shapes(n_fft, n_io, mode)
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"no kernel for device {device}")
-
-
 def _plain_version(dtype: torch.dtype):
     """The plain version of the layouts of ``dtype``: the bf16 layouts'
     tensor-core arithmetic, or the exact float32 transforms."""
     return fused_ifft_pa_fft_bf16 if dtype == torch.bfloat16 else fused_ifft_pa_fft_plain
 
 
-def _launch(ins, outs, n_io, sat, coeff, pa_model, n_fft, mode, rapp_p, layout,
-            sym=None, n_ant=0):
-    """One launch on contiguous CUDA tensors: ``ins``/``outs`` are the real
-    and imag planes, or one ``view_as_real`` of complex64 each in the
-    interleaved layouts; the precoded layouts read the precoder's planes as
-    ``ins`` and the symbols ``sym`` (a ``view_as_real`` of complex64, one
-    row of it for each ``n_ant`` rows); counted under ``layout``. The bf16
-    layouts run the tensor-core kernel, with :func:`tensor_kernel_table`."""
-    io, bf16 = LAYOUTS[layout]
+def _float2(z: torch.Tensor) -> torch.Tensor:
+    """complex64 as the kernel reads it: one float2 array, no lazy conjugate
+    or negative, no strides."""
+    return torch.view_as_real(z.resolve_conj().resolve_neg().contiguous())
+
+
+def _launch(ins, sat, coeff, io, dtype, sym=None, *, pa_model, n_fft, mode, rapp_p):
+    """One launch of the layout ``io`` at ``dtype`` (bf16: the tensor-core
+    kernel, with :func:`tensor_kernel_table`) into new outputs like
+    ``ins``, which it returns; counted under that layout. ``ins`` are
+    contiguous CUDA tensors: the real and imag planes, or one
+    :func:`_float2` in the interleaved layouts; the precoded layouts read
+    the precoder's planes as ``ins`` and the symbols ``sym`` (a
+    :func:`_float2`, one row of it for each ``n_ant`` rows). No rows: the
+    empty outputs, and no launch."""
+    outs = tuple(map(torch.empty_like, ins))
+    if not sat.numel():                 # no rows: nothing to compute or launch
+        return outs
+    bf16 = dtype == torch.bfloat16
+    layout = f"{io}_{'bf16' if bf16 else 'f32'}"
     named = (*zip(("xr", "xi"), ins), ("sat", sat), ("cubic_coeff", coeff))
     for name, t in (*named, *((("sym", sym),) if sym is not None else ())):
         if not t.is_contiguous():
@@ -671,14 +672,36 @@ def _launch(ins, outs, n_io, sat, coeff, pa_model, n_fft, mode, rapp_p, layout,
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.fused_ifft_pa_fft_launch(
         *ptrs, sat.data_ptr(), coeff.data_ptr(), tw.data_ptr(),
-        None if sym is None else sym.data_ptr(), n_ant, sat.numel(),
-        n_fft.bit_length() - 1, n_io, int(mode == "sc"), int(bf16), IO_KINDS.index(io),
+        None if sym is None else sym.data_ptr(), 0 if sym is None else ins[0].shape[-2],
+        sat.numel(), n_fft.bit_length() - 1, ins[0].shape[-2 if io == "interleaved" else -1],
+        int(mode == "sc"), int(bf16), IO_KINDS.index(io),
         PA_MODELS.index(pa_model), float(rapp_p), -1.0 / (2.0 * rapp_p),
         1.0 / math.sqrt(n_fft), stream)
     if err:
         raise RuntimeError(f"fused_ifft_pa_fft launch failed: CUDA error {err}")
     fused_ifft_pa_fft.launches += 1
     fused_ifft_pa_fft.launches_by_layout[layout] += 1
+    return outs
+
+
+def _chain(x, sat, cubic_coeff, plain, launch, *, pa_model, n_fft, mode, rapp_p):
+    """What the layout wrappers share, for inputs ``x [..., n_io]`` (a row
+    for each leading index): the PA model's, the shapes' and the device's
+    checks, one float32 ``sat`` and ``cubic_coeff`` a row, and the route:
+    ``plain(sat, coeff, **kw)`` runs the layout's plain version where
+    :func:`runs_kernel` says so, ``launch(sat, coeff, **kw)`` runs
+    :func:`_launch` otherwise and for no rows."""
+    if pa_model not in PA_MODELS:
+        raise ValueError(f"unknown PA model {pa_model!r}")
+    check_shapes(n_fft, x.shape[-1], mode)
+    kernel = runs_kernel(x.device)
+    lead = x.shape[:-1]
+    sat = _row_param(sat, lead, x.device)
+    coeff = _row_param(cubic_coeff, lead, x.device)
+    kw = dict(pa_model=pa_model, n_fft=n_fft, mode=mode, rapp_p=rapp_p)
+    if kernel or not x.numel():
+        return launch(sat, coeff, **kw)
+    return plain(sat, coeff, **kw)
 
 
 def fused_ifft_pa_fft(xr: torch.Tensor, xi: torch.Tensor, sat,
@@ -693,24 +716,13 @@ def fused_ifft_pa_fft(xr: torch.Tensor, xi: torch.Tensor, sat,
         raise ValueError("xr and xi must share shape, dtype and device")
     if xr.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"planes must be float32 or bfloat16, got {xr.dtype}")
-    _check_call(pa_model, n_fft, xr.shape[-1], mode, xr.device)
-    lead = xr.shape[:-1]
-    sat = _row_param(sat, lead, xr.device)
-    coeff = _row_param(cubic_coeff, lead, xr.device)
-    if xr.numel() == 0:                 # no rows: nothing to compute or launch
-        return torch.empty_like(xr), torch.empty_like(xi)
-    if xr.device.type == "cpu" or fused_ifft_pa_fft.force_plain:
-        return _plain_version(xr.dtype)(xr, xi, sat, coeff, pa_model=pa_model,
-                                        n_fft=n_fft, mode=mode, rapp_p=rapp_p)
-    outr, outi = torch.empty_like(xr), torch.empty_like(xi)
-    _launch((xr, xi), (outr, outi), xr.shape[-1], sat, coeff, pa_model, n_fft, mode,
-            rapp_p, "planes_bf16" if xr.dtype == torch.bfloat16 else "planes_f32")
-    return outr, outi
+    return _chain(xr, sat, cubic_coeff, functools.partial(_plain_version(xr.dtype), xr, xi),
+                  lambda s, c, **kw: _launch((xr, xi), s, c, "planes", xr.dtype, **kw),
+                  pa_model=pa_model, n_fft=n_fft, mode=mode, rapp_p=rapp_p)
 
 
 fused_ifft_pa_fft.launches = 0
 fused_ifft_pa_fft.launches_by_layout = dict.fromkeys(LAYOUTS, 0)
-fused_ifft_pa_fft.force_plain = False
 
 
 def fused_ifft_pa_fft_complex(x: torch.Tensor, sat, cubic_coeff=0.0, *,
@@ -725,30 +737,23 @@ def fused_ifft_pa_fft_complex(x: torch.Tensor, sat, cubic_coeff=0.0, *,
     cast to bf16 planes and the result cast back would.
 
     Complex128 raises: cast to bf16 from float64 it rounds once, from
-    complex64 twice, so its callers keep the plane route. A CPU tensor (or
-    ``force_plain``) runs the storage's plain version on such planes, bit
-    for bit the plane route's result."""
+    complex64 twice, so its callers keep the plane route. The plain route
+    runs the storage's plain version on such planes, bit for bit the plane
+    route's result."""
     if x.dtype != torch.complex64:
         raise ValueError(f"x must be complex64, got {x.dtype}")
     st = storage_dtype(storage)
-    _check_call(pa_model, n_fft, x.shape[-1], mode, x.device)
-    lead = x.shape[:-1]
-    sat = _row_param(sat, lead, x.device)
-    coeff = _row_param(cubic_coeff, lead, x.device)
-    if x.numel() == 0:
-        return torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    if x.device.type == "cpu" or fused_ifft_pa_fft.force_plain:
-        pr, pi = _plain_version(st)(x.real.to(st), x.imag.to(st), sat, coeff,
-                                    pa_model=pa_model, n_fft=n_fft, mode=mode,
-                                    rapp_p=rapp_p)
+
+    def plain(s, c, **kw):
+        pr, pi = _plain_version(st)(x.real.to(st), x.imag.to(st), s, c, **kw)
         return torch.complex(pr.float(), pi.float())
-    # one float2 array: no lazy conjugate or negative, no strides
-    x = x.resolve_conj().resolve_neg().contiguous()
-    out = torch.empty_like(x)
-    _launch((torch.view_as_real(x),), (torch.view_as_real(out),), x.shape[-1], sat, coeff,
-            pa_model, n_fft, mode, rapp_p,
-            "interleaved_bf16" if st == torch.bfloat16 else "interleaved_f32")
-    return out
+
+    def launch(s, c, **kw):
+        out, = _launch((_float2(x),), s, c, "interleaved", st, **kw)
+        return torch.view_as_complex(out)
+
+    return _chain(x, sat, cubic_coeff, plain, launch, pa_model=pa_model, n_fft=n_fft,
+                  mode=mode, rapp_p=rapp_p)
 
 
 def precode_planes(sym: torch.Tensor, vr: torch.Tensor, vi: torch.Tensor
@@ -774,8 +779,8 @@ def fused_precoded_ifft_pa_fft(sym: torch.Tensor, vr: torch.Tensor, vi: torch.Te
     output planes of ``vr``'s shape and dtype: bit for bit
     :func:`fused_ifft_pa_fft` of :func:`precode_planes`, in one launch of a
     precoded layout (counted in ``fused_ifft_pa_fft.launches``) that reads
-    ``s`` and ``V`` and never writes the precoded planes. A CPU tensor (or
-    ``force_plain``) runs the precode and then the planes' plain version."""
+    ``s`` and ``V`` and never writes the precoded planes. The plain route
+    runs the precode and then the planes' plain version."""
     if vr.shape != vi.shape or vr.dtype != vi.dtype or vr.device != vi.device:
         raise ValueError("vr and vi must share shape, dtype and device")
     if vr.dtype not in (torch.float32, torch.bfloat16):
@@ -787,23 +792,14 @@ def fused_precoded_ifft_pa_fft(sym: torch.Tensor, vr: torch.Tensor, vi: torch.Te
                          f"{tuple(vr.shape)} [..., n_ant, n_sc]")
     if sym.device != vr.device:
         raise ValueError("sym and the planes must share a device")
-    _check_call(pa_model, n_fft, vr.shape[-1], "sc", vr.device)
-    lead = vr.shape[:-1]
-    sat = _row_param(sat, lead, vr.device)
-    coeff = _row_param(cubic_coeff, lead, vr.device)
-    if vr.numel() == 0:
-        return torch.empty_like(vr), torch.empty_like(vi)
-    if vr.device.type == "cpu" or fused_ifft_pa_fft.force_plain:
-        pr, pi = precode_planes(sym, vr, vi)
-        return _plain_version(vr.dtype)(pr, pi, sat, coeff, pa_model=pa_model,
-                                        n_fft=n_fft, mode="sc", rapp_p=rapp_p)
-    # one float2 array: no lazy conjugate or negative, no strides
-    sym = sym.resolve_conj().resolve_neg().contiguous()
-    outr, outi = torch.empty_like(vr), torch.empty_like(vi)
-    _launch((vr, vi), (outr, outi), vr.shape[-1], sat, coeff, pa_model, n_fft, "sc",
-            rapp_p, "precoded_bf16" if vr.dtype == torch.bfloat16 else "precoded_f32",
-            sym=torch.view_as_real(sym), n_ant=vr.shape[-2])
-    return outr, outi
+
+    def plain(s, c, **kw):
+        return _plain_version(vr.dtype)(*precode_planes(sym, vr, vi), s, c, **kw)
+
+    return _chain(vr, sat, cubic_coeff, plain,
+                  lambda s, c, **kw: _launch((vr, vi), s, c, "precoded", vr.dtype,
+                                             _float2(sym), **kw),
+                  pa_model=pa_model, n_fft=n_fft, mode="sc", rapp_p=rapp_p)
 
 
 def fused_ifft_clip_fft(x_fd: torch.Tensor, sat_power) -> torch.Tensor:

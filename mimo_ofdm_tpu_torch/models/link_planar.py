@@ -18,9 +18,10 @@ per-antenna gains ``[B, n_ant]``.
   one launch of the fused CUDA kernel (``kernels/fused_pa.py``), whose load
   computes the MRT precode ``s o V`` from the symbols and the precoder's
   planes; the CNC replica runs the chain over ``B`` rows.
-* The antenna combine ``sum_ant H o X`` after the chain is one launch of
-  the combine kernel (``kernels/antenna_combine.py``) on bf16 planes on
-  CUDA, and the eager expression on any other planes.
+* The antenna combine ``sum_ant H o X`` after the chain is one call of
+  ``kernels/antenna_combine.py``. Each kernel wrapper picks its own route
+  (the kernel, or its plain version for CPU tensors and float32 combines);
+  the frame does not.
 
 Randoms: JAX's threefry stream cannot be reproduced, so a frame takes its
 randoms as a :class:`FrameDraws` -- drawn from a ``torch.Generator`` on the
@@ -39,7 +40,8 @@ import math
 
 import torch
 
-from mimo_ofdm_tpu_torch.kernels.antenna_combine import antenna_combine, antenna_combine_plain
+from mimo_ofdm_tpu_torch.kernels.antenna_combine import antenna_combine
+from mimo_ofdm_tpu_torch.kernels.fused_pa import fused_precoded_ifft_pa_fft, storage_dtype
 from mimo_ofdm_tpu_torch.models import channels, receivers, transmit
 from mimo_ofdm_tpu_torch.models.geometry import C_LIGHT
 from mimo_ofdm_tpu_torch.models.link import (FrameCounters, FrameDraws,
@@ -49,8 +51,7 @@ from mimo_ofdm_tpu_torch.models.precoding import per_antenna_alpha
 from mimo_ofdm_tpu_torch.ops import bits as bits_ops
 from mimo_ofdm_tpu_torch.ops import noise as noise_ops
 from mimo_ofdm_tpu_torch.ops import ofdm, pa
-from mimo_ofdm_tpu_torch.ops.fused_chain import (fused_sc_precoded_ifft_pa_fft_planar_io,
-                                                 kernel_eligible, storage_dtype)
+from mimo_ofdm_tpu_torch.ops.fused_chain import kernel_eligible
 from mimo_ofdm_tpu_torch.utils.config import LinkConfig
 from mimo_ofdm_tpu_torch.utils.device import resolve_device
 from mimo_ofdm_tpu_torch.utils.spans import OFF, enabled, span
@@ -221,10 +222,6 @@ def _build_planar_frame_fn(cfg: LinkConfig, n_iters: int, incl_clean: bool,
     def f32sum(x, dim):
         return x.sum(dim, dtype=torch.float32)
 
-    # the combine kernel takes bf16 planes on CUDA; other planes combine eagerly
-    kernel_combine = st == torch.bfloat16 and dev.type == "cuda"
-    combine = antenna_combine if kernel_combine else antenna_combine_plain
-
     def draw(batch: int, generator: torch.Generator) -> FrameDraws:
         return FrameDraws.draw(cfg, batch, generator, st, reroll=reroll)
 
@@ -297,16 +294,13 @@ def _build_planar_frame_fn(cfg: LinkConfig, n_iters: int, incl_clean: bool,
             in the kernel's load; the precoded planes are never written."""
             with span("tx.precode"):
                 s = sym.contiguous()
-            rows = vr.shape[0] * vr.shape[1]
-            with span("chain", rows=rows, precoded=rows) if enabled() else OFF:
-                fr, fi = fused_sc_precoded_ifft_pa_fft_planar_io(
-                    s, vr, vi, n_fft, pa_model=pa_model, sat=sat_pow[:, None],
-                    cubic_coeff=toi_coeff[:, None], rapp_p=cfg.pa.rapp_p_hardness,
-                    storage=storage)
+            with span("chain", rows=vr.shape[0] * vr.shape[1]) if enabled() else OFF:
+                fr, fi = fused_precoded_ifft_pa_fft(
+                    s, vr, vi, sat_pow[:, None], toi_coeff[:, None], pa_model=pa_model,
+                    n_fft=n_fft, rapp_p=cfg.pa.rapp_p_hardness)
             # propagate: sum_ant H o X (reference/channel.py:74-89), f32 accum
-            with (span("tx.combine", combined=sym.shape[0] if kernel_combine else 0)
-                  if enabled() else OFF):
-                return combine(hr, hi, fr, fi)
+            with span("tx.combine"):
+                return antenna_combine(hr, hi, fr, fi)
 
         bits_d = draws.bits_d.to(dev)
         sym_d = transmit.modulate_users(bits_d, m)

@@ -2,10 +2,11 @@
 (counterpart of ``mimo_ofdm_tpu/ops/mxu_fft.py``).
 
 The JAX package runs this chain as 64 x 64 matmuls on the TPU's matrix
-unit; here every entry point hands its planes to the CUDA kernel of
-:mod:`mimo_ofdm_tpu_torch.kernels.fused_pa` (or, for CPU tensors, to its
-plain PyTorch version). The PA is named by model and per-row parameters
-instead of a closure, since it runs inside the kernel.
+unit; here every entry point hands its planes to the wrappers of
+:mod:`mimo_ofdm_tpu_torch.kernels.fused_pa`, which launch the CUDA kernel
+(or, for CPU tensors, run its plain PyTorch version). The PA is named by
+model and per-row parameters instead of a closure, since it runs inside
+the kernel.
 
 ``storage`` is the dtype of the planes on either side of the kernel
 (``"bfloat16"`` or ``"float32"``). At float32 the transforms run in
@@ -21,8 +22,7 @@ from __future__ import annotations
 import torch
 
 from mimo_ofdm_tpu_torch.kernels.fused_pa import (check_shapes, fused_ifft_pa_fft,
-                                                  fused_ifft_pa_fft_complex,
-                                                  fused_precoded_ifft_pa_fft, storage_dtype)
+                                                  fused_ifft_pa_fft_complex, storage_dtype)
 
 
 def kernel_eligible(n_fft: int, n_io: int, mode: str) -> bool:
@@ -48,23 +48,6 @@ def fused_sc_ifft_pa_fft_planar_io(dr: torch.Tensor, di: torch.Tensor,
     return fused_ifft_pa_fft(dr.to(st).contiguous(), di.to(st).contiguous(),
                              sat, cubic_coeff, pa_model=pa_model, n_fft=n_fft,
                              mode="sc", rapp_p=rapp_p)
-
-
-def fused_sc_precoded_ifft_pa_fft_planar_io(sym: torch.Tensor, vr: torch.Tensor,
-                                            vi: torch.Tensor, n_fft: int, *,
-                                            pa_model: str, sat, cubic_coeff=0.0,
-                                            rapp_p: float = 1.1,
-                                            storage: str = "float32"
-                                            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The single-user transmitter's chain: :func:`fused_sc_ifft_pa_fft_planar_io`
-    of the MRT precode ``s o V``, for complex64 symbols ``sym [..., n_sc]``
-    and the precoder's planes ``vr``/``vi [..., n_ant, n_sc]``, with the
-    precode in the kernel's load (the precoded planes are never written).
-    Output planes ``[..., n_ant, n_sc]`` in the storage dtype."""
-    st = storage_dtype(storage)
-    return fused_precoded_ifft_pa_fft(sym, vr.to(st).contiguous(), vi.to(st).contiguous(),
-                                      sat, cubic_coeff, pa_model=pa_model, n_fft=n_fft,
-                                      rapp_p=rapp_p)
 
 
 def fused_sc_ifft_pa_fft_planar(data_sc: torch.Tensor, n_fft: int, *,

@@ -1,9 +1,9 @@
 """The planar transmitter's antenna combine ``sum_ant H o X``
-(``kernels/antenna_combine.py``): the wrapper on CPU tensors against the
-eager expression, its checks, the ``tx.combine`` span's count; and, marked
-``gpu`` (the ``cuda`` fixture skips without a card, decided at run time), the
-CUDA kernel against the eager expression, a model of its sum order and a
-float64 sum, alone and inside the bf16 frames. On a machine with an H100:
+(``kernels/antenna_combine.py``): the wrapper on CPU tensors and on float32
+planes against the eager expression, its checks, the ``tx.combine`` spans;
+and, marked ``gpu`` (the ``cuda`` fixture skips without a card, decided at
+run time), the CUDA kernel against the eager expression, a model of its sum
+order and a float64 sum, alone and inside the bf16 frames. On a machine with an H100:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_antenna_combine.py -q
 """
@@ -86,11 +86,22 @@ def test_wrapper_on_cpu_equals_the_eager_expression(batch, n_ant, n_sc, shared_h
     assert COMBINE.launches == before            # the plain version launches nothing
 
 
+def test_float32_planes_take_the_eager_expression():
+    """float32 planes, which the kernel does not take, combine as the eager
+    expression bit for bit, at any strides (here the strided real and imag
+    views of complex planes), and launch nothing."""
+    hr, hi, fr, fi = (t.float() for t in planes(4, 8, 64, seed=1))
+    x = torch.complex(fr, fi)
+    before = COMBINE.launches
+    for args in ((hr, hi, fr, fi), (hr, hi, x.real, x.imag)):
+        assert torch.equal(bits(COMBINE(*args)), bits(eager(*args)))
+    assert COMBINE.launches == before
+
+
 def _bad_calls():
     hr, hi, fr, fi = planes(4, 8, 64)
     wide = planes(8, 8, 64)[0]
     return {
-        "float32": (hr.float(), hi.float(), fr.float(), fi.float()),
         "complex": (torch.complex(hr.float(), hi.float()),) * 2 + (fr, fi),
         "one float32 plane": (hr, hi, fr.float(), fi),
         "shapes differ": (hr, hi, fr[:, :4], fi[:, :4]),
@@ -142,24 +153,22 @@ def _frame_spans(alg: str, storage: str, device="cpu"):
     return spans.collect(), COMBINE.launches - before
 
 
-def _check_combine_spans(rec, launches, alg, want):
-    """One ``tx.combine`` span for the TX and one for each MCNC pass, each
-    counting ``want`` frames, and a launch for each span that counts any."""
-    combines = [s for s in rec if s.name == "tx.combine"]
-    assert len(combines) == (1 + N_ITERS + 1 if alg == "mcnc" else 1)
-    assert all(s.counts == {"combined": want} for s in combines)
-    assert launches == (len(combines) if want else 0)
-    assert Counter(s.name for s in rec)["frame"] == 1
+def _combines(alg: str) -> int:
+    """The combines of a frame: one for the TX and one for each MCNC pass."""
+    return 1 + N_ITERS + 1 if alg == "mcnc" else 1
 
 
 @pytest.mark.parametrize("storage", ["bfloat16", "float32"])
 @pytest.mark.parametrize("alg", ["cnc", "mcnc"])
 def test_tx_combine_span_counts_the_frames_the_kernel_combined(alg, storage):
-    """Every ``tx.combine`` span counts the frames the combine kernel took:
-    on the CPU none, on bf16 planes as on float32 ones, since both combine
-    eagerly there (the batch on bf16 CUDA planes: ``test_frame_launches``)."""
+    """A ``tx.combine`` span, with no counts, around every combine of the
+    frame; on the CPU the combine launches nothing, on bf16 planes as on
+    float32 ones (the launches on bf16 CUDA planes: ``test_frame_launches``)."""
     rec, launches = _frame_spans(alg, storage)
-    _check_combine_spans(rec, launches, alg, 0)
+    combines = [s for s in rec if s.name == "tx.combine"]
+    assert len(combines) == _combines(alg) and not any(s.counts for s in combines)
+    assert Counter(s.name for s in rec)["frame"] == 1
+    assert launches == 0
 
 
 # --- the kernel on the card --------------------------------------------------
@@ -306,10 +315,9 @@ def _bf16_rayleigh(alg: str, storage: str = "bfloat16") -> config.LinkConfig:
 @pytest.mark.parametrize("alg", ["cnc", "mcnc"])
 def test_frame_launches(cuda, alg, storage):
     """A bf16 frame combines through the kernel once for the TX and once
-    for each MCNC pass (2 iterations: 3 passes); float32 planes never. Its
-    ``tx.combine`` spans count the batch on bf16 planes, 0 on float32."""
-    rec, launches = _frame_spans(alg, storage, cuda)
-    _check_combine_spans(rec, launches, alg, BATCH if storage == "bfloat16" else 0)
+    for each MCNC pass (2 iterations: 3 passes); float32 planes never."""
+    _, launches = _frame_spans(alg, storage, cuda)
+    assert launches == (_combines(alg) if storage == "bfloat16" else 0)
     cfg = _bf16_rayleigh(alg, storage)
     frame = link.make_frame_fn(cfg, 2, device=cuda)
     draws = link.FrameDraws.draw(cfg, 8, torch.Generator(device=cuda).manual_seed(2))

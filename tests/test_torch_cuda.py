@@ -10,6 +10,7 @@ skips ``tests/conftest.py``, which imports JAX):
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_cuda.py -q
 """
 
+import contextlib
 import dataclasses
 import math
 
@@ -17,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from mimo_ofdm_tpu_torch.kernels import fused_pa
+from mimo_ofdm_tpu_torch import kernels
+from mimo_ofdm_tpu_torch.kernels import antenna_combine, fused_pa
 from mimo_ofdm_tpu_torch.models import link
 from mimo_ofdm_tpu_torch.utils import config
 
@@ -31,6 +33,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _routed(plain):
+    """Inside the ``with`` block: every kernel's plain version where
+    ``plain``, else the kernels."""
+    return kernels.plain_versions() if plain else contextlib.nullcontext()
 
 
 def _rel(a, b):
@@ -192,18 +200,15 @@ def test_bf16_other_pa_models(cuda, model):
     assert _rel(k, exact) < 1e-2
 
 
-def test_bf16_force_plain_takes_the_bf16_plain_version(cuda):
+def test_bf16_under_plain_versions_runs_the_bf16_plain_version(cuda):
     g = torch.Generator(device=cuda).manual_seed(32)
     xr = torch.randn(16, 512, generator=g, device=cuda).bfloat16()
     xi = torch.randn(16, 512, generator=g, device=cuda).bfloat16()
     kw = dict(pa_model="softlim", n_fft=1024, mode="sc")
-    KERNEL.force_plain = True
-    try:
+    with kernels.plain_versions():
         before = KERNEL.launches
         pr, pi = KERNEL(xr, xi, 0.5, **kw)
         assert KERNEL.launches == before
-    finally:
-        KERNEL.force_plain = False
     assert torch.equal(torch.complex(pr.float(), pi.float()), _bf16_plain(xr, xi, 0.5, **kw))
 
 
@@ -453,10 +458,10 @@ def test_chain_calls_launch_only_the_kernel(cuda):
     sym, v = _cplx(g, 8, 2048, cuda), torch.randn(2, 8, 8, 2048, generator=g, device=cuda)
     vb = v.bfloat16()
 
-    def precoded(vr, vi, storage):
-        return fused_chain.fused_sc_precoded_ifft_pa_fft_planar_io(
-            sym, vr, vi, 4096, pa_model="softlim", sat=sat.reshape(8, 8),
-            cubic_coeff=coeff.reshape(8, 8), storage=storage)
+    def precoded(vr, vi):
+        return fused_pa.fused_precoded_ifft_pa_fft(
+            sym, vr, vi, sat.reshape(8, 8), coeff.reshape(8, 8), pa_model="softlim",
+            n_fft=4096)
 
     calls = {
         "sc_bf16": lambda: fused_chain.fused_sc_ifft_pa_fft_planar(
@@ -464,8 +469,8 @@ def test_chain_calls_launch_only_the_kernel(cuda):
         "full_f32": lambda: fused_chain.fused_ifft_pa_fft_planar(
             f, pa_model="softlim", sat=sat, cubic_coeff=coeff, storage="float32"),
         "clip": lambda: fused_pa.fused_ifft_clip_fft(f, 1.5),
-        "precoded_bf16": lambda: precoded(vb[0], vb[1], "bfloat16"),
-        "precoded_f32": lambda: precoded(v[0], v[1], "float32"),
+        "precoded_bf16": lambda: precoded(vb[0], vb[1]),
+        "precoded_f32": lambda: precoded(v[0], v[1]),
     }
     for name, call in calls.items():
         call()
@@ -495,11 +500,8 @@ def test_frame_kernel_equals_plain(cuda):
         frame = link.make_frame_fn(c, 2, device=cuda)
         draws = link.FrameDraws.draw(c, 8, torch.Generator(device=cuda).manual_seed(4))
         for plain in (False, True):
-            KERNEL.force_plain = plain
-            try:
+            with _routed(plain):
                 r = frame(15.0, draws)
-            finally:
-                KERNEL.force_plain = False
             out[alg, plain] = np.concatenate([r.clean_err.cpu().numpy()[:, None],
                                               r.dist_err.cpu().numpy()], axis=1)
         np.testing.assert_array_equal(out[alg, False], out[alg, True])
@@ -510,11 +512,11 @@ def test_bf16_rayleigh_frames_precoded_equal_eager_precode(cuda, alg, monkeypatc
     """The bf16 Rayleigh frame: its transmitter chain, precoded in the
     kernel's load, gives exactly the counters of the eager precode followed
     by the planes' layout (the chain as it ran before), one precoded launch
-    for the TX and one for each MCNC pass. The plain versions (forced) give
-    totals within 1%: the bf16 plain version sums in another order than the
-    tensor cores, so its bits differ (BF16_PLAIN_TOL)."""
+    for the TX and one for each MCNC pass. The plain versions (forced) launch
+    neither the chain's kernel nor the combine's and give totals within 1%:
+    the bf16 plain version sums in another order than the tensor cores, so
+    its bits differ (BF16_PLAIN_TOL)."""
     from mimo_ofdm_tpu_torch.models import link_planar
-    from mimo_ofdm_tpu_torch.ops import fused_chain
     cfg = config.LinkConfig(
         modem=config.ModemConfig(n_fft=1024, n_sub_carr=512),
         array=config.ArrayConfig(n_elements=8),
@@ -529,19 +531,18 @@ def test_bf16_rayleigh_frames_precoded_equal_eager_precode(cuda, alg, monkeypatc
         return np.concatenate([r.clean_err.cpu().numpy()[:, None], r.dist_err.cpu().numpy()],
                               axis=1)
 
-    def eager(sym, vr, vi, n_fft, **kw):
-        return fused_chain.fused_sc_ifft_pa_fft_planar_io(
-            *fused_pa.precode_planes(sym, vr, vi), n_fft, **kw)
+    def eager(sym, vr, vi, sat, cubic_coeff, **kw):
+        return fused_pa.fused_ifft_pa_fft(*fused_pa.precode_planes(sym, vr, vi), sat,
+                                          cubic_coeff, **kw)
 
     before = KERNEL.launches_by_layout["precoded_bf16"]
     precoded = counters()
     assert KERNEL.launches_by_layout["precoded_bf16"] - before == (1 + 3 if alg == "mcnc" else 1)
-    KERNEL.force_plain = True
-    try:
+    launches = KERNEL.launches, antenna_combine.antenna_combine.launches
+    with kernels.plain_versions():
         plain = counters()
-    finally:
-        KERNEL.force_plain = False
-    monkeypatch.setattr(link_planar, "fused_sc_precoded_ifft_pa_fft_planar_io", eager)
+    assert (KERNEL.launches, antenna_combine.antenna_combine.launches) == launches
+    monkeypatch.setattr(link_planar, "fused_precoded_ifft_pa_fft", eager)
     np.testing.assert_array_equal(precoded, counters())
     assert precoded[:, 1].sum() > 0
     assert abs(int(plain[:, 1:].sum()) - int(precoded[:, 1:].sum())) <= 0.01 * precoded[:, 1:].sum()
@@ -565,11 +566,8 @@ def test_geometric_frames_kernel_equal_plain(cuda, model, storage):
         out = {}
         for plain in (False, True):
             before = KERNEL.launches
-            KERNEL.force_plain = plain
-            try:
+            with _routed(plain):
                 r = frame(25.0, draws)
-            finally:
-                KERNEL.force_plain = False
             assert KERNEL.launches - before == (0 if plain else 1 + 3)
             out[plain] = np.concatenate([r.clean_err.cpu().numpy()[:, None],
                                          r.dist_err.cpu().numpy()], axis=1)
@@ -593,11 +591,8 @@ def test_stochastic_frames_kernel_equal_plain(cuda, model):
         out = {}
         for plain in (False, True):
             before = KERNEL.launches
-            KERNEL.force_plain = plain
-            try:
+            with _routed(plain):
                 r = frame(25.0, draws)
-            finally:
-                KERNEL.force_plain = False
             assert KERNEL.launches - before == (0 if plain else 1 + 3)
             out[plain] = np.concatenate([r.clean_err.cpu().numpy()[:, None],
                                          r.dist_err.cpu().numpy()], axis=1)
@@ -628,11 +623,8 @@ def test_mu_frame_kernel_equal_plain(cuda, prec, alg, sep):
     out = {}
     for plain in (False, True):
         before = KERNEL.launches
-        KERNEL.force_plain = plain
-        try:
+        with _routed(plain):
             r = frame(25.0, draws)
-        finally:
-            KERNEL.force_plain = False
         assert KERNEL.launches - before == (0 if plain else 1 + 3)
         out[plain] = (r.clean_err.cpu().numpy(), r.dist_err.cpu().numpy())
     np.testing.assert_array_equal(out[False][0], out[True][0])
@@ -860,11 +852,8 @@ def test_coded_frame_kernel_equals_plain(cuda):
                                      n_bits=chain.a)
         out = {}
         for plain in (False, True):
-            KERNEL.force_plain = plain
-            try:
+            with _routed(plain):
                 out[plain] = [x.cpu() for x in frame(14.0, draws)]
-            finally:
-                KERNEL.force_plain = False
         for a, b in zip(out[False], out[True]):
             assert torch.equal(a, b)
 
@@ -915,11 +904,8 @@ def test_siso_round_cuda_matches_cpu(cuda):
         out = {}
         for plain in (False, True):
             before = KERNEL.launches
-            KERNEL.force_plain = plain
-            try:
+            with _routed(plain):
                 out[plain] = [x.cpu() for x in frame(22.0, draws)]
-            finally:
-                KERNEL.force_plain = False
             assert KERNEL.launches - before == (0 if plain else 1 + 4)
         for a, b in zip(out[False], out[True]):
             assert torch.equal(a, b)

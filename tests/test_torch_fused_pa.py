@@ -325,8 +325,9 @@ def _eager_precode_and_chain(sym, vr, vi, sat, coeff, **kw):
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])
 def test_precoded_entry_equals_eager_precode_and_plain_chain(storage, model):
     """At n_fft 1024 / 8 antennas the precoded entry point (its plain version
-    here) and its ``ops/fused_chain`` counterpart give exactly the eager
-    precode followed by the plain chain, and launch nothing on the CPU."""
+    here), with per-frame or per-row ``sat``/``cubic_coeff``, gives exactly
+    the eager precode followed by the plain chain, and launches nothing on
+    the CPU."""
     st = fused_pa.storage_dtype(storage)
     g = torch.Generator().manual_seed(17 + len(storage))
     sym = torch.complex(torch.randn(3, 512, generator=g), torch.randn(3, 512, generator=g))
@@ -338,10 +339,11 @@ def test_precoded_entry_equals_eager_precode_and_plain_chain(storage, model):
     before = fused_pa.fused_ifft_pa_fft.launches
     got = fused_pa.fused_precoded_ifft_pa_fft(sym, vr, vi, sat, coeff, pa_model=model,
                                               n_fft=1024)
-    chain = fused_chain.fused_sc_precoded_ifft_pa_fft_planar_io(
-        sym, vr, vi, 1024, pa_model=model, sat=sat, cubic_coeff=coeff, storage=storage)
+    per_row = fused_pa.fused_precoded_ifft_pa_fft(
+        sym, vr, vi, sat.expand(3, 8).contiguous(), coeff.expand(3, 8).contiguous(),
+        pa_model=model, n_fft=1024)
     assert fused_pa.fused_ifft_pa_fft.launches == before
-    for out in (got, chain):
+    for out in (got, per_row):
         assert out[0].dtype == out[1].dtype == st and out[0].shape == (3, 8, 512)
         assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
 

@@ -232,11 +232,11 @@ def test_planar_frame_stage_tree(alg):
         inside = [s for s in rec if s.parent == i]
         if alg == "mcnc":        # the full planar TX again
             assert [s.name for s in inside] == ["tx.precode", "chain", "tx.combine"]
-            assert inside[1].counts == {"rows": BATCH * N_ANT, "precoded": BATCH * N_ANT}
+            assert inside[1].counts == {"rows": BATCH * N_ANT}
         else:                    # one PA's replica through the complex-ended chain call
             assert [s.name for s in inside] == ["chain"] and inside[0].counts == {"rows": BATCH}
     tx_chain = next(s for s in rec if s.name == "chain" and s.parent == 0)
-    assert tx_chain.counts == {"rows": BATCH * N_ANT, "precoded": BATCH * N_ANT}
+    assert tx_chain.counts == {"rows": BATCH * N_ANT}
     counts = Counter(s.name for s in rec)
     assert counts["chain"] == 1 + N_ITERS + 1
     assert counts["tx.precode"] == (1 + N_ITERS + 1 if alg == "mcnc" else 1)
@@ -248,10 +248,11 @@ def test_los_frame_counters_equal_with_spans_on_and_off():
     assert sum(s.name == "frame" for s in rec) == 1
 
 
-def test_every_kernel_call_runs_inside_a_chain_span(monkeypatch):
-    """Each call of the fused chain's three entry points, planes, complex
-    and precoded (the plain version here, the kernel on the card), runs with
-    a ``chain`` span as the innermost one open."""
+def _probe_kernel_calls(monkeypatch):
+    """Wrap the fused chain's three entry points, planes and complex (as
+    ``ops/fused_chain.py`` calls them) and precoded (as the planar frame
+    does), so that each call records a ``probe`` span."""
+    from mimo_ofdm_tpu_torch.models import link_planar
     from mimo_ofdm_tpu_torch.ops import fused_chain
 
     def probed(real):
@@ -260,8 +261,17 @@ def test_every_kernel_call_runs_inside_a_chain_span(monkeypatch):
                 return real(*a, **kw)
         return probe
 
-    for name in ("fused_ifft_pa_fft", "fused_ifft_pa_fft_complex", "fused_precoded_ifft_pa_fft"):
-        monkeypatch.setattr(fused_chain, name, probed(getattr(fused_chain, name)))
+    for module, name in ((fused_chain, "fused_ifft_pa_fft"),
+                         (fused_chain, "fused_ifft_pa_fft_complex"),
+                         (link_planar, "fused_precoded_ifft_pa_fft")):
+        monkeypatch.setattr(module, name, probed(getattr(module, name)))
+
+
+def test_every_kernel_call_runs_inside_a_chain_span(monkeypatch):
+    """Each call of the fused chain's three entry points, planes, complex
+    and precoded (the plain version here, the kernel on the card), runs with
+    a ``chain`` span as the innermost one open."""
+    _probe_kernel_calls(monkeypatch)
     for alg in ("mcnc", "cnc"):
         rec = _frame_with_spans(alg)[3]
         probes = [s for s in rec if s.name == "probe"]
@@ -345,16 +355,7 @@ def test_mu_frame_stage_tree(alg):
 def test_every_kernel_call_of_the_mu_frame_runs_inside_a_chain_span(monkeypatch):
     """The two-user frame's chain calls (complex-ended: the TX and every
     replica) each run with a ``chain`` span as the innermost one open."""
-    from mimo_ofdm_tpu_torch.ops import fused_chain
-
-    def probed(real):
-        def probe(*a, **kw):
-            with spans.span("probe"):
-                return real(*a, **kw)
-        return probe
-
-    for name in ("fused_ifft_pa_fft", "fused_ifft_pa_fft_complex", "fused_precoded_ifft_pa_fft"):
-        monkeypatch.setattr(fused_chain, name, probed(getattr(fused_chain, name)))
+    _probe_kernel_calls(monkeypatch)
     for alg in ("mcnc_mu", "cnc"):
         rec = _mu_frame_with_spans(alg)[2]
         probes = [s for s in rec if s.name == "probe"]
