@@ -7,7 +7,8 @@ Phases, each printing one JSON line:
 1. device: the card's name and power limit (nvidia-smi) and torch's view.
 2. build: compile csrc/fused_pa.cu with nvcc and print ptxas's report;
    registers, local memory (spills), shared memory and resident blocks per
-   SM of every instantiation (5 sizes x 2 modes x 4 I/O layouts), as the
+   SM of every instantiation (5 sizes x 2 modes x 4 I/O layouts, and 5
+   sizes x 4 precoded layouts in sc mode), as the
    runtime reads them, whether it is the tensor-core kernel (the bf16
    layouts) and the HMMA/HGMMA instructions in its SASS (``cuobjdump``).
    A 4096-point instantiation with local memory or fewer than 2 resident
@@ -49,8 +50,12 @@ Phases, each printing one JSON line:
    torch.fft chain with the clip (and without it) at the main path's two
    shapes (TX launch, CNC replica) in both plane dtypes, beside the
    kernel's bound and its share of it; then the interleaved bf16 layout at
-   the TX shape and at an MCNC-MU pass, with the complex-ended chain call
-   as callers see it through the interleaved layout and through planes.
+   the TX shape, with the complex-ended chain call as callers see it
+   through the interleaved layout and through planes; then the
+   precoded_mu bf16 layout, which the two-user TX and MCNC-MU replica
+   passes run, at the TX shape and at an MCNC-MU pass, bit for bit the
+   eager swap, precode and interleaved launch it replaces (timed beside
+   it, and that launch alone).
    ``ms`` is the mean over back-to-back calls, host time included, as the
    main path sees it; ``graph_ms`` replays the kernel's calls from a CUDA
    graph, which leaves its device time alone. A bf16 line's ``plain_ms``
@@ -188,7 +193,7 @@ BF16_PLAIN_TOL = 2e-3
 # the layouts that the paths may leave unlaunched: the transmitter's chain
 # is precoded, so the planes take complex128 chain calls only
 PLANES_LAYOUTS = ("planes_bf16", "planes_f32")
-PRECODED_LAYOUTS = ("precoded_bf16", "precoded_f32")
+PRECODED_LAYOUTS = ("precoded_bf16", "precoded_f32", "precoded_mu_bf16")
 RESULTS: dict = {}
 LAYOUT_LAUNCHES: dict = {}      # the paths' kernel launches by I/O layout, summed
 COMBINE_LAUNCHES = [0]          # the combine kernel's launches in drive_path's rounds
@@ -536,7 +541,9 @@ def interleaved_checks(fp, dev, g) -> list[dict]:
 
 
 # the interleaved layout's shapes on the main paths: (name, rows, n_fft,
-# mode, storage); each is timed in phase 6 or beside the analysis timing
+# mode, storage); each is checked in phase 3, and timed in phase 6 or
+# beside the analysis timing but the MCNC-MU pass's, which the precoded_mu
+# timing times (its ``interleaved_ms``)
 MAIN_SHAPES = (("tx_interleaved_bf16", 8192, 4096, "sc", "bfloat16"),
                ("mcnc_mu_interleaved_bf16", 16384, 4096, "sc", "bfloat16"),
                ("scan_sc_interleaved_f32", 2560, 4096, "sc", "float32"),
@@ -2283,6 +2290,91 @@ def precoded_timing(fp, ofdm, dev, g, name: str, frames: int, dtype, card: str =
     return line
 
 
+# the precoded_mu layout's shapes in the two-user cell: (name, frames, an
+# MCNC-MU replica pass: rows [2, frames, 64], else the TX: [frames, 64])
+MU_SHAPES = (("mcnc_mu_precoded_mu", 128, True), ("mu_tx_precoded_mu", 128, False))
+
+
+def precoded_mu_timing(fp, ofdm, dev, g, name: str, frames: int, replica: bool,
+                       card: str = "", n_ant: int = 64, n_usr: int = 2, n_fft: int = 4096,
+                       n_sc: int = 2048) -> dict:
+    """The precoded_mu bf16 layout at the two-user cell's shapes: the TX
+    (``[frames, n_ant]`` rows) or an MCNC-MU replica pass (``[n_usr,
+    frames, n_ant]`` rows, each user's detection swapped in), softlim at
+    sat 0.5, a precoder laid out users first as the joint MRT returns it:
+    CUDA events and graph replay of ``fused_precoded_mu_ifft_pa_fft`` and
+    of the route it replaces (the eager swap and precode, then the
+    interleaved layout) and of that route's launch alone, the bf16 plain
+    version, :func:`clip_chain` and the clip-free torch.fft chain, and the
+    bound (V read once, the symbols, the output). Fails unless it equals
+    the route it replaces bit for bit and lies within 2e-3 relative L2 of
+    the bf16 plain version."""
+    def cplx(*shape):
+        return torch.complex(torch.randn(*shape, generator=g, device=dev),
+                             torch.randn(*shape, generator=g, device=dev))
+
+    usr = cplx(frames, n_usr, n_sc)
+    det = cplx(n_usr, frames, n_sc) if replica else None
+    v = (cplx(n_usr, frames, n_ant, n_sc) / math.sqrt(n_ant)).permute(1, 2, 0, 3)
+    lead = ((n_usr,) if replica else ()) + (frames, n_ant)
+    rows = math.prod(lead)
+    sat = torch.full(lead, 0.5, device=dev)
+    kw = dict(pa_model="softlim", n_fft=n_fft, storage="bfloat16")
+
+    def fused():
+        return fp.fused_precoded_mu_ifft_pa_fft(usr, v, sat, det_sym=det, **kw)
+
+    def precode():
+        return fp.precode_users(usr if det is None else fp.swap_detections(det, usr), v)
+
+    def eager():
+        return fp.fused_ifft_pa_fft_complex(precode(), sat, mode="sc", **kw)
+
+    x = precode()
+    full = ofdm.map_subcarriers(x, n_fft)
+    got, want = fused(), eager()
+    plain = bf16_plain(fp, x.real.bfloat16(), x.imag.bfloat16(), sat, pa_model="softlim",
+                       n_fft=n_fft, mode="sc")
+    torch.cuda.synchronize()
+    ms = time_ms(fused)
+    line = {"rows": rows, "mode": "sc", "layout": "precoded_mu_bf16", "ms": ms,
+            "graph_ms": graph_ms(fused),
+            "eager_route_ms": time_ms(eager), "eager_route_graph_ms": graph_ms(eager),
+            "eager_precode_ms": time_ms(precode),
+            "interleaved_ms": time_ms(lambda: fp.fused_ifft_pa_fft_complex(x, sat, mode="sc",
+                                                                          **kw)),
+            "bitwise_equal_eager_route": bits_equal(got, want)}
+    n_bytes = (frames * n_ant * n_usr * n_sc * 8 + (2 if replica else 1) * frames * n_usr
+               * n_sc * 8 + rows * n_sc * 8 + rows * 8)
+    n_ops = rows * fp.flops_per_row(n_fft, "sc")
+    bytes_ms, op_ms = n_bytes / H100_BYTES_PER_S * 1e3, ops_bound_ms(n_ops, torch.bfloat16)
+    exact = fp.fused_ifft_pa_fft_plain(x.real, x.imag, sat, torch.zeros_like(sat),
+                                       pa_model="softlim", n_fft=n_fft, mode="sc")
+    exact = torch.complex(*exact)
+    line.update(bound_ms=max(bytes_ms, op_ms), bound_share=max(bytes_ms, op_ms) / ms,
+                graph_bound_share=max(bytes_ms, op_ms) / line["graph_ms"],
+                bound_by="bytes" if bytes_ms > op_ms else "operations", bytes=n_bytes,
+                flops=n_ops, rel_err=rel_err(got, exact),
+                exact_plain_ms=time_ms(lambda: fp.fused_ifft_pa_fft_plain(
+                    x.real, x.imag, sat, torch.zeros_like(sat), pa_model="softlim",
+                    n_fft=n_fft, mode="sc"), n=5, warmup=1),
+                library_ms=time_ms(lambda: clip_chain(full, sat)),
+                library_noclip_ms=time_ms(lambda: torch.fft.fft(
+                    torch.fft.ifft(full, norm="ortho"), norm="ortho")), card=card)
+    line.update(bf16_plain_columns(fp, rows, n_fft, got, plain,
+                                   lambda: bf16_plain(fp, x.real.bfloat16(), x.imag.bfloat16(),
+                                                      sat, pa_model="softlim", n_fft=n_fft,
+                                                      mode="sc")))
+    print(json.dumps({"phase": "timing", "shape": name, **line}), flush=True)
+    check(line["bitwise_equal_eager_route"]
+          and line["rel_err_bf16_plain"] <= BF16_PLAIN_TOL and line["rel_err"] <= BF16_TOL
+          and bool(torch.isfinite(got).all()),
+          f"precoded_mu layout at {name}: the eager swap, precode and interleaved layout bit "
+          "for bit, the plain versions within their tolerances", line,
+          "timing")
+    return line
+
+
 def bf16_plain_columns(fp, rows: int, n_fft: int, got, plain, plain_fn) -> dict:
     """A bf16 layout's timing line against its own plain version: that
     version's time (``plain_ms``; the exact one's stays ``exact_plain_ms``),
@@ -2302,8 +2394,10 @@ def timing(fp, ofdm, dev, batch: int, card: str = "", n_fft: int = 4096,
     """Phase 6: kernel, plain and torch.fft chain (with and without the
     clip) at the main path's shapes on planes; the precoded f32 layout at
     the TX shape (:func:`precoded_timing`); then the interleaved bf16
-    layout at the TX shape (the MU link's TX) and at an MCNC-MU replica
-    pass (:func:`layout_timing`)."""
+    layout at the TX shape (:func:`layout_timing`), and the precoded_mu
+    bf16 layout that the two-user TX and MCNC-MU replica passes run
+    (:func:`precoded_mu_timing`, which also times the interleaved launch
+    at an MCNC-MU pass)."""
     g = torch.Generator(device=dev).manual_seed(1)
     out = {}
     for name, rows, dtype in (("tx", batch * 64, torch.bfloat16),
@@ -2317,8 +2411,10 @@ def timing(fp, ofdm, dev, batch: int, card: str = "", n_fft: int = 4096,
                   f"bf16 kernel at the {name} shape", out[name], "timing")
     out["tx_precoded_f32"] = precoded_timing(fp, ofdm, dev, g, "tx_precoded_f32", batch,
                                              torch.float32, card, n_fft=n_fft, n_sc=n_sc)
-    for shape in MAIN_SHAPES[:2]:
-        out[shape[0]] = layout_timing(fp, ofdm, dev, g, *shape, card=card)
+    out[MAIN_SHAPES[0][0]] = layout_timing(fp, ofdm, dev, g, *MAIN_SHAPES[0], card=card)
+    for name, frames, replica in MU_SHAPES:
+        out[name] = precoded_mu_timing(fp, ofdm, dev, g, name, frames, replica, card,
+                                       n_fft=n_fft, n_sc=n_sc)
     return out
 
 
@@ -2416,6 +2512,9 @@ def kernels_line(paths: dict, times: dict, analysis_times: dict, smi: str) -> di
              f"precoded bf16 [{shapes['bench_tx_precoded']['rows']}, 2048]"),
             ("precoded_f32", "tx_precoded_f32", "main-path TX at f32 storage, sc precoded "
              f"f32 [{shapes['tx_precoded_f32']['rows']}, 2048]"),
+            ("precoded_mu_bf16", "mcnc_mu_precoded_mu", "MCNC-MU replica pass, sc "
+             f"precoded_mu bf16 [{shapes['mcnc_mu_precoded_mu']['rows']}, 2048] (the MU TX: "
+             f"[{shapes['mu_tx_precoded_mu']['rows']}, 2048])"),
             ("planes_bf16", "bench_tx", "bench TX shape, sc bf16 planes "
              f"[{shapes['bench_tx']['rows']}, 2048]"),
             ("planes_f32", "scan_sc_f32", "radiation-scan chunk, sc f32 planes [2560, 2048]"),

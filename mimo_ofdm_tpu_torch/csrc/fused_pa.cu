@@ -13,9 +13,9 @@
 //          bin layout of ops/ofdm.py (DC and guard bins zero), and write back
 //          only the data bins in the same order, bin n_sc/2 last.
 //
-// Six I/O layouts; only how one point is read and written differs (struct
-// Planes, Interleaved, Precoded), the index maps and the 1/sqrt(n) stay
-// shared:
+// Eight I/O layouts; only how one point is read and written differs (struct
+// Planes, Interleaved, Precoded, PrecodedMu), the index maps and the
+// 1/sqrt(n) stay shared:
 //   planes f32, planes bf16 : separate real and imag planes of that type;
 //   interleaved f32         : complex64, one float2 a point (the Pallas
 //                             kernel's own complex64 contract);
@@ -27,9 +27,16 @@
 //                             symbols s and the planes of its precoder V,
 //                             row (b, ant) reading s[b] and V[b, ant], with
 //                             the roundings of the eager precode; the store
-//                             is that of the planes.
+//                             is that of the planes;
+//   precoded_mu f32, precoded_mu bf16 (sc mode only): the multi-user joint
+//                             precode sum_u s_u o V_u on load, from the
+//                             frames' complex64 symbols of every user (in an
+//                             MCNC-MU replica pass one user's swapped for its
+//                             detection) and the complex64 precoder V, with
+//                             the roundings of the eager precode and user
+//                             sum; the store is the interleaved one.
 // A complex64 caller thus needs no copies into planes and back, and the
-// transmitter's precoded planes are never written.
+// transmitters' precoded planes and sums are never written.
 //
 // What bounds it on an H100 (SXM, 3.35 TB/s, 67 TFLOP/s f32 without tensor
 // cores). Per canonical row (n_fft 4096, n_sc 2048, sc mode, bf16 planes) the
@@ -159,11 +166,14 @@ __device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
 // reads point i of a row as f32 and store() writes one, both before and
 // after the shared 1/sqrt(n) scaling. A layout with kPairs gives the
 // tensor-core kernel two points at once as its bf16 A operand instead
-// (load_pair).
+// (load_pair); one with kSummed sums its points over users, and orders the
+// rows and their prefetch itself (PrecodedMu). `args(launch)` takes the
+// layout's part of the launch's arguments (LaunchArgs).
 struct Alone {   // a layout that reads nothing beside its arrays
   static constexpr bool kPairs = false;
+  static constexpr bool kSummed = false;
   struct Args {};
-  static Args args(const float2*, int) { return {}; }
+  template <typename L> static Args args(const L&) { return {}; }
   static __device__ __forceinline__ Args at(Args, long long, int) { return {}; }
 };
 
@@ -213,7 +223,7 @@ struct Precoded : Planes<T> {
     const float2* s;
     int n_ant;
   };
-  static Args args(const float2* s, int n_ant) { return {s, n_ant}; }
+  template <typename L> static Args args(const L& l) { return {l.sym, l.n_ant}; }
   static __device__ __forceinline__ const float2* at(Args a, long long row, int n_io) {
     return a.s + static_cast<size_t>(static_cast<int>(row) / a.n_ant) * n_io;
   }
@@ -241,6 +251,100 @@ struct Precoded : Planes<T> {
     const uint32_t sr = pack(sa.x, sb.x), si = pack(sa.y, sb.y);
     re = sub_bf16x2(mul_bf16x2(sr, v_r), mul_bf16x2(si, v_i));
     im = add_bf16x2(mul_bf16x2(sr, v_i), mul_bf16x2(si, v_r));
+  }
+};
+
+// The multi-user joint precode of the transmitter as the load: point i of a
+// row is sum_u s_u[i] V[b, ant, u, i] over the n_usr users, from the
+// complex64 precoder V [frames, n_ant, n_usr, n_io] (any strides but the
+// last; `Args`'s v and its strides) and the users' complex64 symbols
+// usr [frames, n_usr, n_io]. The arrays handed to the kernel are V (xr, for
+// the prefetch) and the complex64 output, stored as the interleaved layout
+// stores (BF16: each half rounded to bf16).
+//   * The rows are [frames, n_ant] (the transmitter), or with the
+//     detections det [n_rep = n_usr, frames, n_io] (an MCNC-MU replica
+//     pass) [n_usr, frames, n_ant]: row (r, b, ant) reads user r's symbols
+//     from det[r, b] and every other user's from usr[b], the torch.where
+//     swap of the eager replica.
+//   * Each term and the sum are what the eager route stores
+//     (kernels/fused_pa.py::precode_users): ATen's complex64 product
+//     (a + ib)(c + id), which the card's build of ATen computes as
+//     fma(a, c, -(b d)) + i fma(a, d, b c), then the terms added to 0 in
+//     user order, as ATen's sum over up to 4 users adds them; each
+//     operation pinned (__fmaf_rn, __fmul_rn, __fadd_rn). The load then
+//     rounds each half where Interleaved<BF16> rounds its input.
+//   * Blocks take the rows with the user of the detection running fastest
+//     (output_row): the rows (0, b, ant) and (1, b, ant), which read the
+//     same V[b, ant], run side by side, so the second read of V's 32 KB
+//     hits L2.
+template <bool BF16>
+struct PrecodedMu : Interleaved<BF16> {
+  static constexpr bool kSummed = true;
+  struct Args {
+    const float2* v;
+    long long frame_stride, ant_stride, user_stride;   // V's, in complex points
+    const float2* usr;
+    const float2* det;                                  // null: no swap
+    int n_ant, n_usr, n_rep, frames;
+  };
+  template <typename L> static Args args(const L& l) {
+    const int n_rep = l.det ? l.n_usr : 1;
+    return {static_cast<const float2*>(l.xr), l.v_strides[0], l.v_strides[1],
+            l.v_strides[2], l.sym, l.det, l.n_ant, l.n_usr, n_rep,
+            l.rows / (n_rep * l.n_ant)};
+  }
+  // a row: its frame, antenna and swapped user (the pointers are made
+  // from them and the kernel's arguments when read, which holds 3
+  // registers a row through the loads, not 9)
+  struct Row {
+    int b, ant, r;
+  };
+  // (the rows, as the launch's `rows`, fit an int)
+  static __device__ __forceinline__ Row at(Args a, long long row, int) {
+    const int vrows = a.frames * a.n_ant;
+    const int r = static_cast<int>(row) / vrows;
+    const int vrow = static_cast<int>(row) - r * vrows;
+    const int b = vrow / a.n_ant;
+    return {b, vrow - b * a.n_ant, r};
+  }
+  // the output row that the block-order row `i` computes
+  static __device__ __forceinline__ long long output_row(Args a, long long i) {
+    const int k = static_cast<int>(i);
+    return (k % a.n_rep) * (a.frames * a.n_ant) + k / a.n_rep;
+  }
+  // user u's symbols and precoder of a row
+  static __device__ __forceinline__ const float2* symbols(Args a, Row w, int u, int n_io) {
+    return a.det && u == w.r ? a.det + (static_cast<size_t>(w.r) * a.frames + w.b) * n_io
+                             : a.usr + (static_cast<size_t>(w.b) * a.n_usr + u) * n_io;
+  }
+  static __device__ __forceinline__ const float2* precoder(Args a, Row w, int u) {
+    return a.v + w.b * a.frame_stride + w.ant * a.ant_stride + u * a.user_stride;
+  }
+  // point i (-1: none, which reads 0) of a user's symbols or precoder: a
+  // select, not a branch, so that a user's loads all issue before the
+  // first sum waits on them
+  static __device__ __forceinline__ float2 point(const float2* __restrict__ x, int i) {
+    return i >= 0 ? __ldg(x + i) : make_float2(0.0f, 0.0f);
+  }
+  // acc + s v, as the eager route stores the product and adds it; a point
+  // outside the row reads s = v = 0 and keeps acc at +0
+  static __device__ __forceinline__ float2 add_term(float2 acc, float2 s, float2 v) {
+    const float re = __fmaf_rn(s.x, v.x, -__fmul_rn(s.y, v.y));
+    const float im = __fmaf_rn(s.x, v.y, __fmul_rn(s.y, v.x));
+    return make_float2(__fadd_rn(acc.x, re), __fadd_rn(acc.y, im));
+  }
+  // into L2: every user's V row of the `count` block-order rows from `first`
+  static __device__ __forceinline__ void prefetch(Args a, long long first, int count,
+                                                  int n_io) {
+    const int lines = (n_io * static_cast<int>(sizeof(float2)) + 127) / 128;
+    const int total = count * a.n_usr * lines;
+    for (int k = threadIdx.x; k < total; k += kThreads) {
+      const int l = k / lines, line = k - l * lines;
+      const int i = l / a.n_usr, u = l - i * a.n_usr;
+      const Row w = at(a, output_row(a, first + i), n_io);
+      const char* p = reinterpret_cast<const char*>(precoder(a, w, u)) + 128 * line;
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+    }
   }
 };
 
@@ -440,8 +544,11 @@ fused_ifft_pa_fft_kernel(const typename IO::Elem* __restrict__ xr,
   extern __shared__ float2 smem[];
   const int slot = threadIdx.x / TPR;
   const int t = threadIdx.x % TPR;
-  const long long row = static_cast<long long>(blockIdx.x) * RPB + slot;
+  long long row = static_cast<long long>(blockIdx.x) * RPB + slot;
   const bool live = row < rows;
+  if constexpr (IO::kSummed) {
+    if (live) row = IO::output_row(io_args, row);
+  }
   float2* const buf_a = smem + slot * N;
   float2* const buf_b = smem + kBlockPoints + slot * N;
   const int k = t / R, a = t % R;
@@ -460,28 +567,55 @@ fused_ifft_pa_fft_kernel(const typename IO::Elem* __restrict__ xr,
   // wait on L2, not on device memory.
   const long long next = (static_cast<long long>(blockIdx.x) + ahead) * RPB;
   if (next < rows) {
-    const size_t bytes = static_cast<size_t>(min(static_cast<long long>(RPB), rows - next)) * n_io * sizeof(T);
-    const char* nr = reinterpret_cast<const char*>(xr + next * n_io);
-    [[maybe_unused]] const char* ni =
-        kTwo ? reinterpret_cast<const char*>(xi + next * n_io) : nullptr;
-    for (size_t b = threadIdx.x * 128; b < bytes; b += kThreads * 128) {
-      asm volatile("prefetch.global.L2 [%0];" ::"l"(nr + b));
-      if constexpr (kTwo) asm volatile("prefetch.global.L2 [%0];" ::"l"(ni + b));
+    if constexpr (IO::kSummed) {
+      IO::prefetch(io_args, next, static_cast<int>(min(static_cast<long long>(RPB), rows - next)),
+                   n_io);
+    } else {
+      const size_t bytes = static_cast<size_t>(min(static_cast<long long>(RPB), rows - next)) * n_io * sizeof(T);
+      const char* nr = reinterpret_cast<const char*>(xr + next * n_io);
+      [[maybe_unused]] const char* ni =
+          kTwo ? reinterpret_cast<const char*>(xi + next * n_io) : nullptr;
+      for (size_t b = threadIdx.x * 128; b < bytes; b += kThreads * 128) {
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(nr + b));
+        if constexpr (kTwo) asm volatile("prefetch.global.L2 [%0];" ::"l"(ni + b));
+      }
     }
   }
 
   // load, with the IFFT's 1/sqrt(n) folded in
-  const T* __restrict__ rr = xr + off;
-  const T* __restrict__ ri = kTwo ? xi + off : nullptr;
-  const auto at = IO::at(io_args, live ? row : 0, n_io);
+  if constexpr (IO::kSummed) {
+    // one user's points at a time; the 1/sqrt(n) a rounded product of its
+    // own, as the interleaved layout scales its load
+    const auto w = IO::at(io_args, live ? row : 0, n_io);
 #pragma unroll
-  for (int j = 0; j < kPoints; ++j) {
-    const int p = t + TPR * j;
-    v[j] = make_float2(0.0f, 0.0f);
-    const int src = !SC ? p : (p >= 1 && p <= h) ? h + p - 1 : (p >= N - h ? p - (N - h) : -1);
-    if (live && src >= 0) {
-      const float2 u = IO::load(rr, ri, at, src);
-      v[j] = make_float2(u.x * norm, u.y * norm);
+    for (int j = 0; j < kPoints; ++j) v[j] = make_float2(0.0f, 0.0f);
+    for (int u = 0; u < io_args.n_usr; ++u) {
+      const float2* __restrict__ s = IO::symbols(io_args, w, u, n_io);
+      const float2* __restrict__ pv = IO::precoder(io_args, w, u);
+#pragma unroll
+      for (int j = 0; j < kPoints; ++j) {
+        const int p = t + TPR * j;
+        const int bin = !SC ? p : (p >= 1 && p <= h) ? h + p - 1 : (p >= N - h ? p - (N - h) : -1);
+        const int src = live ? bin : -1;
+        v[j] = IO::add_term(v[j], IO::point(s, src), IO::point(pv, src));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPoints; ++j)
+      v[j] = make_float2(__fmul_rn(v[j].x, norm), __fmul_rn(v[j].y, norm));
+  } else {
+    const T* __restrict__ rr = xr + off;
+    const T* __restrict__ ri = kTwo ? xi + off : nullptr;
+    const auto at = IO::at(io_args, live ? row : 0, n_io);
+#pragma unroll
+    for (int j = 0; j < kPoints; ++j) {
+      const int p = t + TPR * j;
+      v[j] = make_float2(0.0f, 0.0f);
+      const int src = !SC ? p : (p >= 1 && p <= h) ? h + p - 1 : (p >= N - h ? p - (N - h) : -1);
+      if (live && src >= 0) {
+        const float2 u = IO::load(rr, ri, at, src);
+        v[j] = make_float2(u.x * norm, u.y * norm);
+      }
     }
   }
 
@@ -610,7 +744,14 @@ fused_ifft_pa_fft_kernel(const typename IO::Elem* __restrict__ xr,
 //     against the planes' 0.79, most of the difference the symbols' 8 B a
 //     point from L2, and 1.80 for the eager precode and the planes' launch
 //     it replaces; the same precode in f32 a point took 1.31 ms (NVIDIA
-//     H100 80GB HBM3, 700 W).
+//     H100 80GB HBM3, 700 W). The precoded_mu layout sums the users' s V
+//     in f32 a point, one user's loads at a time as selects, not branches:
+//     0.618 ms at [16384, 2048] (an MCNC-MU replica pass) against the
+//     interleaved layout's 0.406, and 1.078 for the eager swap, precode
+//     and interleaved launch it replaces; most of the difference is its
+//     reads from L2, 32 B a point (both users' symbols and V) against 8.
+//     With the loads as branches it took 1.109 ms, each point's loads
+//     waiting on the one before (same card).
 //   * Twiddles and the DFT matrices' B fragments come from one host-built
 //     table (kernels/fused_pa.py::tensor_kernel_table) laid out in the
 //     order a warp's lanes read it, 256 contiguous bytes a load; a table
@@ -879,6 +1020,9 @@ fused_ifft_pa_fft_tc_kernel(const typename IO::Elem* __restrict__ xr,
     tau[i] = b % R;
     row[i] = static_cast<long long>(blockIdx.x) * RPB + b / R;
     live[i] = row[i] < rows;
+    if constexpr (IO::kSummed) {
+      if (live[i]) row[i] = IO::output_row(io_args, row[i]);
+    }
     buf0[i] = smem + (b / R) * 4 * N;
     buf1[i] = buf0[i] + kBufBytes;
   }
@@ -886,44 +1030,85 @@ fused_ifft_pa_fft_tc_kernel(const typename IO::Elem* __restrict__ xr,
   // the rows of the block `ahead` blocks on into L2, as the kernel above
   const long long next = (static_cast<long long>(blockIdx.x) + ahead) * RPB;
   if (next < rows) {
-    const size_t bytes = static_cast<size_t>(min(static_cast<long long>(RPB), rows - next)) * n_io * sizeof(T);
-    const char* nr = reinterpret_cast<const char*>(xr + next * n_io);
-    [[maybe_unused]] const char* ni =
-        kTwo ? reinterpret_cast<const char*>(xi + next * n_io) : nullptr;
-    for (size_t b = threadIdx.x * 128; b < bytes; b += kThreads * 128) {
-      asm volatile("prefetch.global.L2 [%0];" ::"l"(nr + b));
-      if constexpr (kTwo) asm volatile("prefetch.global.L2 [%0];" ::"l"(ni + b));
+    if constexpr (IO::kSummed) {
+      IO::prefetch(io_args, next, static_cast<int>(min(static_cast<long long>(RPB), rows - next)),
+                   n_io);
+    } else {
+      const size_t bytes = static_cast<size_t>(min(static_cast<long long>(RPB), rows - next)) * n_io * sizeof(T);
+      const char* nr = reinterpret_cast<const char*>(xr + next * n_io);
+      [[maybe_unused]] const char* ni =
+          kTwo ? reinterpret_cast<const char*>(xi + next * n_io) : nullptr;
+      for (size_t b = threadIdx.x * 128; b < bytes; b += kThreads * 128) {
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(nr + b));
+        if constexpr (kTwo) asm volatile("prefetch.global.L2 [%0];" ::"l"(ni + b));
+      }
     }
   }
 
   const Mat f16 = load_matrix(mats);
   Frag x[kTiles];
+  if constexpr (IO::kSummed) {
+    // the sums over users in f32, one user's points at a time (its loads
+    // all issue before the first sum waits on them), each half rounded to
+    // bf16 as the A operand
+    typename IO::Row w[kTiles];
+    float2 acc[kTiles][4][2];
 #pragma unroll
-  for (int i = 0; i < kTiles; ++i) {
-    const size_t off = live[i] ? static_cast<size_t>(row[i]) * n_io : 0;
-    const T* __restrict__ rr = xr + off;
-    const T* __restrict__ ri = kTwo ? xi + off : nullptr;
-    const auto at = IO::at(io_args, live[i] ? row[i] : 0, n_io);
+    for (int i = 0; i < kTiles; ++i) {
+      w[i] = IO::at(io_args, live[i] ? row[i] : 0, n_io);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      if constexpr (IO::kPairs) {
-        int src[2];
+      for (int r = 0; r < 4; ++r) acc[i][r][0] = acc[i][r][1] = make_float2(0.0f, 0.0f);
+    }
+    for (int u = 0; u < io_args.n_usr; ++u) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int p = 16 * tau[i] + g + 8 * (r & 1) + TPR * (2 * q + 8 * (r >> 1) + e);
-          src[e] = live[i] ? io_index<SC, N>(p, h) : -1;
+      for (int i = 0; i < kTiles; ++i) {
+        const float2* __restrict__ s = IO::symbols(io_args, w[i], u, n_io);
+        const float2* __restrict__ pv = IO::precoder(io_args, w[i], u);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int p = 16 * tau[i] + g + 8 * (r & 1) + TPR * (2 * q + 8 * (r >> 1) + e);
+            const int src = live[i] ? io_index<SC, N>(p, h) : -1;
+            acc[i][r][e] = IO::add_term(acc[i][r][e], IO::point(s, src), IO::point(pv, src));
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        x[i].re[r] = pack(acc[i][r][0].x, acc[i][r][1].x);
+        x[i].im[r] = pack(acc[i][r][0].y, acc[i][r][1].y);
+      }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i) {
+      const size_t off = live[i] ? static_cast<size_t>(row[i]) * n_io : 0;
+      const T* __restrict__ rr = xr + off;
+      const T* __restrict__ ri = kTwo ? xi + off : nullptr;
+      const auto at = IO::at(io_args, live[i] ? row[i] : 0, n_io);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if constexpr (IO::kPairs) {
+          int src[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int p = 16 * tau[i] + g + 8 * (r & 1) + TPR * (2 * q + 8 * (r >> 1) + e);
+            src[e] = live[i] ? io_index<SC, N>(p, h) : -1;
+          }
+          IO::load_pair(rr, ri, at, src[0], src[1], x[i].re[r], x[i].im[r]);
+        } else {
+          float2 v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int p = 16 * tau[i] + g + 8 * (r & 1) + TPR * (2 * q + 8 * (r >> 1) + e);
+            const int src = io_index<SC, N>(p, h);
+            v[e] = live[i] && src >= 0 ? IO::load(rr, ri, at, src) : make_float2(0.0f, 0.0f);
+          }
+          x[i].re[r] = pack(v[0].x, v[1].x);
+          x[i].im[r] = pack(v[0].y, v[1].y);
         }
-        IO::load_pair(rr, ri, at, src[0], src[1], x[i].re[r], x[i].im[r]);
-      } else {
-        float2 v[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int p = 16 * tau[i] + g + 8 * (r & 1) + TPR * (2 * q + 8 * (r >> 1) + e);
-          const int src = io_index<SC, N>(p, h);
-          v[e] = live[i] && src >= 0 ? IO::load(rr, ri, at, src) : make_float2(0.0f, 0.0f);
-        }
-        x[i].re[r] = pack(v[0].x, v[1].x);
-        x[i].im[r] = pack(v[0].y, v[1].y);
       }
     }
   }
@@ -1014,6 +1199,7 @@ template <typename IO> struct TensorCores : std::false_type {};
 template <> struct TensorCores<Planes<__nv_bfloat16>> : std::true_type {};
 template <> struct TensorCores<Interleaved<true>> : std::true_type {};
 template <> struct TensorCores<Precoded<__nv_bfloat16>> : std::true_type {};
+template <> struct TensorCores<PrecodedMu<true>> : std::true_type {};
 
 template <int LOG2N, bool SC, typename IO>
 struct Instance {
@@ -1057,8 +1243,10 @@ struct LaunchArgs {
   void *outr, *outi;
   const float *sat, *coeff;
   const float2* tw;
-  const float2* sym;   // the precoded layouts' symbols, else null
-  int n_ant, rows, n_io, pa_model;
+  const float2* sym;   // the precoded layouts' symbols (precoded_mu: every user's), else null
+  const float2* det;   // precoded_mu: the replica pass's detections, else null
+  long long v_strides[3];   // precoded_mu: V's frame, antenna and user strides
+  int n_ant, n_usr, rows, n_io, pa_model;
   float rapp_p, rapp_exp, norm;
   cudaStream_t stream;
 
@@ -1073,7 +1261,7 @@ struct LaunchArgs {
     kern<<<blocks, kThreads, I::kSmem, stream>>>(
         static_cast<const T*>(xr), static_cast<const T*>(xi),
         static_cast<T*>(outr), static_cast<T*>(outi), sat, coeff, tw, rows, n_io,
-        pa_model, rapp_p, rapp_exp, norm, resident, IO::args(sym, n_ant));
+        pa_model, rapp_p, rapp_exp, norm, resident, IO::args(*this));
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -1122,10 +1310,10 @@ int by_mode(const Op& op, int log2n, int sc_mode) {
   return sc_mode ? by_size<true, IO>(op, log2n) : by_size<false, IO>(op, log2n);
 }
 
-enum Io { kPlanes = 0, kInterleaved = 1, kPrecoded = 2 };
+enum Io { kPlanes = 0, kInterleaved = 1, kPrecoded = 2, kPrecodedMu = 3 };
 
-// 5 sizes x 2 modes x 4 layouts, and 5 sizes of the 2 precoded layouts in sc
-// mode: 50 instantiations, the 25 of the bf16 layouts on the tensor cores
+// 5 sizes x 2 modes x 4 layouts, and 5 sizes of the 4 precoded layouts in sc
+// mode: 60 instantiations, the 30 of the bf16 layouts on the tensor cores
 template <typename Op>
 int dispatch(const Op& op, int log2n, int sc_mode, int bf16, int io) {
   switch (io) {
@@ -1139,6 +1327,10 @@ int dispatch(const Op& op, int log2n, int sc_mode, int bf16, int io) {
       if (!sc_mode) return static_cast<int>(cudaErrorInvalidValue);
       return bf16 ? by_size<true, Precoded<__nv_bfloat16>>(op, log2n)
                   : by_size<true, Precoded<float>>(op, log2n);
+    case kPrecodedMu:   // the multi-user chain's prologue: sc mode only
+      if (!sc_mode) return static_cast<int>(cudaErrorInvalidValue);
+      return bf16 ? by_size<true, PrecodedMu<true>>(op, log2n)
+                  : by_size<true, PrecodedMu<false>>(op, log2n);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1151,7 +1343,12 @@ int dispatch(const Op& op, int log2n, int sc_mode, int bf16, int io) {
 // bf16 by `bf16`); one complex64 array a side in xr/outr (xi, outi null),
 // its halves rounded to bf16 on load and store when `bf16` is set; or, sc
 // mode only, the planes of the precoder V in xr/xi and the frames'
-// complex64 symbols in `sym`, n_ant rows a frame, and output planes. `tw` is
+// complex64 symbols in `sym`, n_ant rows a frame, and output planes; or, sc
+// mode only, the complex64 precoder V [frames, n_ant, n_usr, n_io] in xr
+// (strides `v_frame`, `v_ant`, `v_user`; its points contiguous), every
+// user's complex64 symbols [frames, n_usr, n_io] in `sym`, with `det` the
+// replica pass's detections [n_usr, frames, n_io] (rows [n_usr, frames,
+// n_ant]) or null (rows [frames, n_ant]), and complex64 output in outr. `tw` is
 // kernels/fused_pa.py::twiddle_table(n_fft) on the device for the f32
 // layouts, tensor_kernel_table(n_fft) for the bf16 ones; `stream` is the
 // cudaStream_t of the caller's current stream. Returns cudaGetLastError()
@@ -1159,17 +1356,22 @@ int dispatch(const Op& op, int log2n, int sc_mode, int bf16, int io) {
 extern "C" int fused_ifft_pa_fft_launch(const void* xr, const void* xi,
                                         void* outr, void* outi,
                                         const float* sat, const float* coeff,
-                                        const void* tw, const void* sym, int n_ant,
+                                        const void* tw, const void* sym, const void* det,
+                                        int n_ant, int n_usr, long long v_frame,
+                                        long long v_ant, long long v_user,
                                         int rows, int log2n, int n_io, int sc_mode,
                                         int bf16, int io, int pa_model,
                                         float rapp_p, float rapp_exp,
                                         float norm, void* stream) {
   if (rows <= 0) return 0;
-  if (io == kPrecoded && (sym == nullptr || n_ant <= 0 || rows % n_ant))
+  if ((io == kPrecoded || io == kPrecodedMu) && (sym == nullptr || n_ant <= 0 || rows % n_ant))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (io == kPrecodedMu && (n_usr <= 0 || (det != nullptr && rows % (n_usr * n_ant))))
     return static_cast<int>(cudaErrorInvalidValue);
   const LaunchArgs args{xr, xi, outr, outi, sat, coeff,
                         static_cast<const float2*>(tw), static_cast<const float2*>(sym),
-                        n_ant, rows, n_io, pa_model, rapp_p, rapp_exp, norm,
+                        static_cast<const float2*>(det), {v_frame, v_ant, v_user},
+                        n_ant, n_usr, rows, n_io, pa_model, rapp_p, rapp_exp, norm,
                         static_cast<cudaStream_t>(stream)};
   return dispatch(args, log2n, sc_mode, bf16, io);
 }

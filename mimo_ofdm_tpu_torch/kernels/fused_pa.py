@@ -31,6 +31,13 @@ complex64 symbols ``s [..., n_sc]`` and the precoder's planes ``V [...,
 n_ant, n_sc]`` and gives the chain's output planes for ``s o V`` (the
 precoded layouts), bit for bit what :func:`precode_planes` followed by
 :func:`fused_ifft_pa_fft` gives, without writing the precoded planes.
+:func:`fused_precoded_mu_ifft_pa_fft` is the multi-user transmitter's
+``sc`` chain with its joint precode ``sum_u s_u o V_u`` as the load: every
+user's complex64 symbols (in an MCNC-MU replica pass one user's swapped for
+its detection) and the complex64 precoder ``V [..., n_ant, n_usr, n_sc]`` in,
+complex64 out (the precoded_mu layouts), bit for bit
+:func:`precode_users` followed by :func:`fused_ifft_pa_fft_complex`, without
+writing the users' products or their sum.
 
 For a CUDA tensor the wrappers launch the kernel (built with ``nvcc`` at
 first use into ``mimo_ofdm_tpu_torch/_build/`` and loaded with ``ctypes``)
@@ -73,10 +80,12 @@ MODES = ("full", "sc")
 STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the kernel's I/O layouts: name -> (how a point is read and written, bf16
 # rounding); the kinds in the kernel's order (csrc/fused_pa.cu, enum Io)
-IO_KINDS = ("planes", "interleaved", "precoded")
+IO_KINDS = ("planes", "interleaved", "precoded", "precoded_mu")
 LAYOUTS = {"planes_f32": ("planes", False), "planes_bf16": ("planes", True),
            "interleaved_f32": ("interleaved", False), "interleaved_bf16": ("interleaved", True),
-           "precoded_f32": ("precoded", False), "precoded_bf16": ("precoded", True)}
+           "precoded_f32": ("precoded", False), "precoded_bf16": ("precoded", True),
+           "precoded_mu_f32": ("precoded_mu", False), "precoded_mu_bf16": ("precoded_mu", True)}
+SC_ONLY = ("precoded", "precoded_mu")     # the kinds built in sc mode alone
 N = 4096             # the one length fused_ifft_clip_fft takes, as the TPU kernel
 N_FFT_RANGE = (256, 4096)
 SOURCE = build.PACKAGE_DIR / "csrc" / "fused_pa.cu"
@@ -140,9 +149,9 @@ def fused_ifft_pa_fft_plain(xr, xi, sat, cubic_coeff, *, pa_model: str,
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fused_ifft_pa_fft_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                             ci, ci, ci, ci, cf, cf, cf, vp]
+    vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    lib.fused_ifft_pa_fft_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, cl, cl,
+                                             cl, ci, ci, ci, ci, ci, ci, ci, cf, cf, cf, vp]
     lib.fused_ifft_pa_fft_launch.restype = ci
     lib.fused_ifft_pa_fft_attributes.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
     lib.fused_ifft_pa_fft_attributes.restype = ci
@@ -157,7 +166,7 @@ def build_library() -> tuple[ctypes.CDLL, str]:
 
 def kernel_resources() -> list[dict]:
     """Every instantiation's resources (each size, mode and I/O layout; the
-    precoded layouts in ``sc`` mode only), as the runtime reads them from
+    precoded kinds, :data:`SC_ONLY`, in ``sc`` mode only), as the runtime reads them from
     the loaded kernel on the current card:
     registers, local memory (non-zero when ptxas spills), shared memory,
     resident blocks per SM, whether it is the tensor-core kernel, and the
@@ -168,7 +177,7 @@ def kernel_resources() -> list[dict]:
     for log2n in range(N_FFT_RANGE[0].bit_length() - 1, N_FFT_RANGE[1].bit_length()):
         for mode in MODES:
             for layout, (io, bf16) in LAYOUTS.items():
-                if io == "precoded" and mode != "sc":
+                if io in SC_ONLY and mode != "sc":
                     continue
                 buf = (ctypes.c_int * 6)()
                 err = lib.fused_ifft_pa_fft_attributes(
@@ -186,7 +195,23 @@ def kernel_resources() -> list[dict]:
 
 # a kernel's mangled name: the kernel, <LOG2N, SC, IO>
 _MANGLED = re.compile(r"(fused_ifft_pa_fft(?:_tc)?_kernel)ILi(\d+)ELb([01])E"
-                      r"NS_(?:(6Planes|8Precoded)I(f|13__nv_bfloat16)E|11InterleavedILb([01])EE)")
+                      r"NS_(?:(6Planes|8Precoded)I(f|13__nv_bfloat16)E|11InterleavedILb([01])EE"
+                      r"|10PrecodedMuILb([01])EE)")
+
+
+def instantiation(mangled: str) -> tuple[int, str, str] | None:
+    """``(n_fft, mode, layout)`` of an instantiation of the kernel from its
+    mangled name, or None for any other function."""
+    m = _MANGLED.search(mangled)
+    if m is None:
+        return None
+    _, log2n, sc, kind, plane, inter, mu = m.groups()
+    if plane:
+        layout = f"{kind[1:].lower()}_{'f32' if plane == 'f' else 'bf16'}"
+    else:
+        layout = (f"interleaved_{'bf16' if inter == '1' else 'f32'}" if inter is not None
+                  else f"precoded_mu_{'bf16' if mu == '1' else 'f32'}")
+    return 1 << int(log2n), "sc" if sc == "1" else "full", layout
 
 
 def sass_mma_counts() -> dict:
@@ -199,14 +224,9 @@ def sass_mma_counts() -> dict:
                           check=True).stdout
     out = {}
     for part in sass.split("Function : ")[1:]:
-        m = _MANGLED.search(part.split("\n", 1)[0])
-        if m is None:
-            continue
-        _, log2n, sc, kind, plane, inter = m.groups()
-        layout = (f"{kind[1:].lower()}_{'f32' if plane == 'f' else 'bf16'}" if plane
-                  else f"interleaved_{'bf16' if inter == '1' else 'f32'}")
-        key = (1 << int(log2n), "sc" if sc == "1" else "full", layout)
-        out[key] = len(re.findall(r"\bH(?:G)?MMA\b", part))
+        key = instantiation(part.split("\n", 1)[0])
+        if key is not None:
+            out[key] = len(re.findall(r"\bH(?:G)?MMA\b", part))
     return out
 
 
@@ -645,35 +665,43 @@ def _float2(z: torch.Tensor) -> torch.Tensor:
     return torch.view_as_real(z.resolve_conj().resolve_neg().contiguous())
 
 
-def _launch(ins, sat, coeff, io, dtype, sym=None, *, pa_model, n_fft, mode, rapp_p):
+def _launch(ins, sat, coeff, io, dtype, *, pa_model, n_fft, mode, rapp_p, outs=None,
+            sym=None, det=None, n_ant=0, n_usr=0, v_strides=(0, 0, 0)):
     """One launch of the layout ``io`` at ``dtype`` (bf16: the tensor-core
-    kernel, with :func:`tensor_kernel_table`) into new outputs like
-    ``ins``, which it returns; counted under that layout. ``ins`` are
-    contiguous CUDA tensors: the real and imag planes, or one
-    :func:`_float2` in the interleaved layouts; the precoded layouts read
-    the precoder's planes as ``ins`` and the symbols ``sym`` (a
-    :func:`_float2`, one row of it for each ``n_ant`` rows). No rows: the
-    empty outputs, and no launch."""
-    outs = tuple(map(torch.empty_like, ins))
+    kernel, with :func:`tensor_kernel_table`) into ``outs`` (default: new
+    tensors like ``ins``), which it returns; counted under that layout.
+    ``ins`` and ``outs`` are CUDA tensors, contiguous: the real and imag
+    planes, or one :func:`_float2` in the interleaved layouts; the precoded
+    layouts read the precoder's planes as ``ins`` and the symbols ``sym``
+    (a :func:`_float2`, one row of it for each ``n_ant`` rows); the
+    precoded_mu layouts read the complex64 precoder ``[frames, n_ant,
+    n_usr, n_sc]`` as ``ins`` (a float view, its frame, antenna and user
+    strides ``v_strides`` in complex points), every user's symbols ``sym``
+    and the replica pass's detections ``det`` (or None), and write one
+    :func:`_float2`. No rows: the outputs, and no launch."""
+    outs = tuple(map(torch.empty_like, ins)) if outs is None else outs
     if not sat.numel():                 # no rows: nothing to compute or launch
         return outs
     bf16 = dtype == torch.bfloat16
     layout = f"{io}_{'bf16' if bf16 else 'f32'}"
-    named = (*zip(("xr", "xi"), ins), ("sat", sat), ("cubic_coeff", coeff))
-    for name, t in (*named, *((("sym", sym),) if sym is not None else ())):
-        if not t.is_contiguous():
+    one = io in ("interleaved", "precoded_mu")       # one complex64 array a side
+    named = (*zip(("xr", "xi"), ins if io != "precoded_mu" else ()), ("sat", sat),
+             ("cubic_coeff", coeff), ("sym", sym), ("det", det))
+    for name, t in named:
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     lib, _ = build_library()
     ptrs = [t.data_ptr() for t in (*ins, *outs)]
-    if io == "interleaved":      # one array a side: no imag plane
+    if one:                      # no imag plane
         ptrs = [ptrs[0], None, ptrs[1], None]
     device = ins[0].device
     tw = _twiddles(n_fft, device, bf16)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.fused_ifft_pa_fft_launch(
         *ptrs, sat.data_ptr(), coeff.data_ptr(), tw.data_ptr(),
-        None if sym is None else sym.data_ptr(), 0 if sym is None else ins[0].shape[-2],
-        sat.numel(), n_fft.bit_length() - 1, ins[0].shape[-2 if io == "interleaved" else -1],
+        None if sym is None else sym.data_ptr(), None if det is None else det.data_ptr(),
+        n_ant, n_usr, *v_strides,
+        sat.numel(), n_fft.bit_length() - 1, outs[0].shape[-2 if one else -1],
         int(mode == "sc"), int(bf16), IO_KINDS.index(io),
         PA_MODELS.index(pa_model), float(rapp_p), -1.0 / (2.0 * rapp_p),
         1.0 / math.sqrt(n_fft), stream)
@@ -684,22 +712,24 @@ def _launch(ins, sat, coeff, io, dtype, sym=None, *, pa_model, n_fft, mode, rapp
     return outs
 
 
-def _chain(x, sat, cubic_coeff, plain, launch, *, pa_model, n_fft, mode, rapp_p):
-    """What the layout wrappers share, for inputs ``x [..., n_io]`` (a row
-    for each leading index): the PA model's, the shapes' and the device's
-    checks, one float32 ``sat`` and ``cubic_coeff`` a row, and the route:
-    ``plain(sat, coeff, **kw)`` runs the layout's plain version where
-    :func:`runs_kernel` says so, ``launch(sat, coeff, **kw)`` runs
-    :func:`_launch` otherwise and for no rows."""
+def _chain(shape, device, sat, cubic_coeff, plain, launch, *, pa_model, n_fft, mode,
+           rapp_p):
+    """What the layout wrappers share, for outputs of ``shape [..., n_io]``
+    (a row for each leading index) on ``device``: the PA model's, the
+    shapes' and the device's checks, one float32 ``sat`` and
+    ``cubic_coeff`` a row, and the route: ``plain(sat, coeff, **kw)`` runs
+    the layout's plain version where :func:`runs_kernel` says so,
+    ``launch(sat, coeff, **kw)`` runs :func:`_launch` otherwise and for no
+    rows."""
     if pa_model not in PA_MODELS:
         raise ValueError(f"unknown PA model {pa_model!r}")
-    check_shapes(n_fft, x.shape[-1], mode)
-    kernel = runs_kernel(x.device)
-    lead = x.shape[:-1]
-    sat = _row_param(sat, lead, x.device)
-    coeff = _row_param(cubic_coeff, lead, x.device)
+    check_shapes(n_fft, shape[-1], mode)
+    kernel = runs_kernel(device)
+    lead = shape[:-1]
+    sat = _row_param(sat, lead, device)
+    coeff = _row_param(cubic_coeff, lead, device)
     kw = dict(pa_model=pa_model, n_fft=n_fft, mode=mode, rapp_p=rapp_p)
-    if kernel or not x.numel():
+    if kernel or not math.prod(shape):
         return launch(sat, coeff, **kw)
     return plain(sat, coeff, **kw)
 
@@ -716,7 +746,8 @@ def fused_ifft_pa_fft(xr: torch.Tensor, xi: torch.Tensor, sat,
         raise ValueError("xr and xi must share shape, dtype and device")
     if xr.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"planes must be float32 or bfloat16, got {xr.dtype}")
-    return _chain(xr, sat, cubic_coeff, functools.partial(_plain_version(xr.dtype), xr, xi),
+    return _chain(xr.shape, xr.device, sat, cubic_coeff,
+                  functools.partial(_plain_version(xr.dtype), xr, xi),
                   lambda s, c, **kw: _launch((xr, xi), s, c, "planes", xr.dtype, **kw),
                   pa_model=pa_model, n_fft=n_fft, mode=mode, rapp_p=rapp_p)
 
@@ -744,16 +775,20 @@ def fused_ifft_pa_fft_complex(x: torch.Tensor, sat, cubic_coeff=0.0, *,
         raise ValueError(f"x must be complex64, got {x.dtype}")
     st = storage_dtype(storage)
 
-    def plain(s, c, **kw):
-        pr, pi = _plain_version(st)(x.real.to(st), x.imag.to(st), s, c, **kw)
-        return torch.complex(pr.float(), pi.float())
-
     def launch(s, c, **kw):
         out, = _launch((_float2(x),), s, c, "interleaved", st, **kw)
         return torch.view_as_complex(out)
 
-    return _chain(x, sat, cubic_coeff, plain, launch, pa_model=pa_model, n_fft=n_fft,
-                  mode=mode, rapp_p=rapp_p)
+    return _chain(x.shape, x.device, sat, cubic_coeff,
+                  functools.partial(_complex_plain, x, st), launch, pa_model=pa_model,
+                  n_fft=n_fft, mode=mode, rapp_p=rapp_p)
+
+
+def _complex_plain(x, st, sat, coeff, **kw) -> torch.Tensor:
+    """The plain route of a complex64 layout: the halves of ``x`` cast to
+    planes of ``st``, the storage's plain version, the result cast back."""
+    pr, pi = _plain_version(st)(x.real.to(st), x.imag.to(st), sat, coeff, **kw)
+    return torch.complex(pr.float(), pi.float())
 
 
 def precode_planes(sym: torch.Tensor, vr: torch.Tensor, vi: torch.Tensor
@@ -796,10 +831,84 @@ def fused_precoded_ifft_pa_fft(sym: torch.Tensor, vr: torch.Tensor, vi: torch.Te
     def plain(s, c, **kw):
         return _plain_version(vr.dtype)(*precode_planes(sym, vr, vi), s, c, **kw)
 
-    return _chain(vr, sat, cubic_coeff, plain,
+    return _chain(vr.shape, vr.device, sat, cubic_coeff, plain,
                   lambda s, c, **kw: _launch((vr, vi), s, c, "precoded", vr.dtype,
-                                             _float2(sym), **kw),
+                                             sym=_float2(sym), n_ant=vr.shape[-2], **kw),
                   pa_model=pa_model, n_fft=n_fft, mode="sc", rapp_p=rapp_p)
+
+
+def precode_users(sym: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The multi-user joint precode ``sum_u s_u o V_u`` as the eager
+    transmitter computes it (``reference/modulation.py:373-382``): symbols
+    ``sym [..., n_usr, n_sc]`` times the precoder ``v [..., n_ant, n_usr,
+    n_sc]`` in ATen's complex product, summed over the users ->
+    ``[..., n_ant, n_sc]``."""
+    return (sym[..., :, None, :] * v.transpose(-3, -2)).sum(-3)
+
+
+def swap_detections(det_sym: torch.Tensor, usr_symbols: torch.Tensor) -> torch.Tensor:
+    """Every user's symbols once for each user's detection, users first:
+    ``[r]`` is ``usr_symbols [..., n_usr, n_sc]`` with user ``r``'s row
+    replaced by ``det_sym[r]`` (``det_sym [n_usr, ..., n_sc]``), the
+    symbols of the MCNC-MU replica of user ``r``
+    (``reference/corrector.py:405-451``)."""
+    n_usr = usr_symbols.shape[-2]
+    own = torch.eye(n_usr, dtype=torch.bool, device=usr_symbols.device).view(
+        n_usr, *([1] * (usr_symbols.ndim - 2)), n_usr, 1)
+    return torch.where(own, det_sym[..., None, :], usr_symbols)
+
+
+def fused_precoded_mu_ifft_pa_fft(usr_symbols: torch.Tensor, v: torch.Tensor, sat,
+                                  cubic_coeff=0.0, *, det_sym: torch.Tensor | None = None,
+                                  pa_model: str = "softlim", n_fft: int, rapp_p: float = 1.1,
+                                  storage: str = "float32") -> torch.Tensor:
+    """``extract_sc(FFT(PA(IFFT(map_sc(sum_u s_u o V_u)))))``, the
+    multi-user transmitter's chain on each frame's antenna rows, complex64
+    out: every user's complex64 symbols ``usr_symbols [..., n_usr, n_sc]``
+    and the complex64 precoder ``v [..., n_ant, n_usr, n_sc]`` give rows
+    ``[..., n_ant]``; with the detections ``det_sym [n_usr, ..., n_sc]`` of
+    an MCNC-MU replica pass the rows are ``[n_usr, ..., n_ant]``, row ``r``
+    precoding :func:`swap_detections`'s ``[r]``. ``sat``/``cubic_coeff``
+    broadcast to the rows; ``storage`` as in
+    :func:`fused_ifft_pa_fft_complex`. Bit for bit :func:`precode_users`
+    followed by :func:`fused_ifft_pa_fft_complex`, in one launch of a
+    precoded_mu layout (counted in ``fused_ifft_pa_fft.launches``) that
+    reads the symbols and ``V`` (any strides but the last) and writes
+    neither the users' products nor their sum. The plain route runs those
+    two."""
+    named = (("usr_symbols", usr_symbols), ("v", v),
+             *((("det_sym", det_sym),) if det_sym is not None else ()))
+    for name, t in named:
+        if t.dtype != torch.complex64:
+            raise ValueError(f"{name} must be complex64, got {t.dtype}")
+        if t.device != v.device:
+            raise ValueError("usr_symbols, v and det_sym must share a device")
+    if usr_symbols.ndim < 2 or v.ndim < 3 or v.shape[:-3] + v.shape[-2:] != usr_symbols.shape:
+        raise ValueError(f"v {tuple(v.shape)} does not match usr_symbols "
+                         f"{tuple(usr_symbols.shape)} ([..., n_ant, n_usr, n_sc] against "
+                         "[..., n_usr, n_sc])")
+    lead, (n_usr, n_sc), n_ant = usr_symbols.shape[:-2], usr_symbols.shape[-2:], v.shape[-3]
+    if det_sym is not None and det_sym.shape != (n_usr, *lead, n_sc):
+        raise ValueError(f"det_sym {tuple(det_sym.shape)} is not [n_usr, ..., n_sc] = "
+                         f"{(n_usr, *lead, n_sc)}")
+    shape = (*((n_usr,) if det_sym is not None else ()), *lead, n_ant, n_sc)
+    st = storage_dtype(storage)
+
+    def plain(s, c, **kw):
+        sym = usr_symbols if det_sym is None else swap_detections(det_sym, usr_symbols)
+        return _complex_plain(precode_users(sym, v), st, s, c, **kw)
+
+    def launch(s, c, **kw):
+        vv = v.resolve_conj().resolve_neg()
+        vv = (vv if vv.stride(-1) == 1 else vv.contiguous()).reshape(-1, n_ant, n_usr, n_sc)
+        out = torch.empty(*shape, 2, dtype=torch.float32, device=v.device)
+        _launch((torch.view_as_real(vv),), s, c, "precoded_mu", st, outs=(out,),
+                sym=_float2(usr_symbols), det=None if det_sym is None else _float2(det_sym),
+                n_ant=n_ant, n_usr=n_usr, v_strides=vv.stride()[:3], **kw)
+        return torch.view_as_complex(out)
+
+    return _chain(shape, v.device, sat, cubic_coeff, plain, launch, pa_model=pa_model,
+                  n_fft=n_fft, mode="sc", rapp_p=rapp_p)
 
 
 def fused_ifft_clip_fft(x_fd: torch.Tensor, sat_power) -> torch.Tensor:

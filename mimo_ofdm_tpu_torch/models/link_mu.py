@@ -246,11 +246,11 @@ def make_mu_frame_fn(cfg: LinkConfig, n_iters: int, user_positions: np.ndarray, 
         # users' summed signal
         bits_d = draws.bits_d.to(dev)
         tx_sym = transmit.modulate_users(bits_d, m)              # [B, U, n_sc]
-        with span("tx.precode"):
-            per_ant_sc = transmit.precode_symbols(tx_sym, v, sum_users=True)
-        fd_dist_sc = transmit.ifft_pa_fft_sc(per_ant_sc, n_fft, pa_model, sat_pow[:, None],
-                                             cfg.pa.rapp_p_hardness, **mxu)
-        del per_ant_sc                  # not kept through the receiver's passes
+        with span("tx.precode"):        # the precode runs in the chain's load
+            tx_sym = tx_sym.contiguous()
+        fd_dist_sc = transmit.precode_ifft_pa_fft_sc(tx_sym, v, n_fft, pa_model,
+                                                     sat_pow[:, None], cfg.pa.rapp_p_hardness,
+                                                     **mxu)
         with span("tx.combine"):
             rx = channels.propagate(h_usr, fd_dist_sc, ant_group=ant_group)
         with span("frame.awgn"):

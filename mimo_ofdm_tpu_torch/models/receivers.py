@@ -198,18 +198,15 @@ def make_mcnc_mu_replica(usr_symbols: torch.Tensor, h_sc: torch.Tensor,
     the JAX package's two-user replica with ``usr_idx=u``. With
     ``ant_group``, ``h_sc`` and ``v`` hold this rank's antennas and the
     propagation all-reduces over the group
-    (``mimo_ofdm_tpu/models/receivers.py:188-210``)."""
-    n_usr = usr_symbols.shape[-2]
-    own = torch.eye(n_usr, dtype=torch.bool, device=usr_symbols.device).view(
-        n_usr, *([1] * (usr_symbols.ndim - 2)), n_usr, 1)
-
+    (``mimo_ofdm_tpu/models/receivers.py:188-210``). On the fused chain the
+    swap and the precode run in the kernel's load
+    (:func:`transmit.precode_ifft_pa_fft_sc`)."""
     def replica(det_sym: torch.Tensor) -> torch.Tensor:
         with span("mu.precode"):
-            sym_mu = torch.where(own, det_sym[..., None, :], usr_symbols)
-            per_ant_sc = transmit.precode_symbols(sym_mu, v, sum_users=True)
-        fd_dist_sc = transmit.ifft_pa_fft_sc(per_ant_sc, n_fft, pa_model, sat_power,
-                                             rapp_p, use_mxu_fft=use_mxu_fft,
-                                             mxu_storage=mxu_storage)
+            det = det_sym.contiguous()
+        fd_dist_sc = transmit.precode_ifft_pa_fft_sc(
+            usr_symbols, v, n_fft, pa_model, sat_power, rapp_p, det_sym=det,
+            use_mxu_fft=use_mxu_fft, mxu_storage=mxu_storage)
         with span("mu.combine"):
             return channels.propagate(h_sc, fd_dist_sc, ant_group=ant_group) / agc_corr_sc
 

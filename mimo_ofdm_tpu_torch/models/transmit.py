@@ -44,8 +44,9 @@ def precode_symbols(symbols: torch.Tensor, v: torch.Tensor,
       ``False`` (``reference/modulation.py:373-382``)."""
     if sum_users is None:
         return symbols[..., None, :] * v
-    per_usr = symbols[..., :, None, :] * v.transpose(-3, -2)
-    return per_usr.sum(-3) if sum_users else per_usr
+    if sum_users:
+        return fused_chain.precode_users(symbols, v)
+    return symbols[..., :, None, :] * v.transpose(-3, -2)
 
 
 def _per_sample(v):
@@ -105,6 +106,37 @@ def ifft_pa_fft_sc(per_ant_sc: torch.Tensor, n_fft: int, pa_model: str,
         fd_dist = ifft_pa_fft(fd_clean, pa_model, sat_power, rapp_p, toi_coeff,
                               use_mxu_fft=use_mxu_fft, mxu_storage=mxu_storage)
         return ofdm.extract_subcarriers(fd_dist, n_sc)
+
+
+def precode_ifft_pa_fft_sc(usr_symbols: torch.Tensor, v: torch.Tensor, n_fft: int,
+                           pa_model: str, sat_power, rapp_p: float = 1.1, toi_coeff=0.0, *,
+                           det_sym: torch.Tensor | None = None, use_mxu_fft: bool = False,
+                           mxu_storage: str = "float32") -> torch.Tensor:
+    """The multi-user transmitter on the data bins: every user's symbols
+    ``usr_symbols [..., n_usr, n_sc]`` precoded by ``v [..., n_ant, n_usr,
+    n_sc]`` and summed over users (:func:`precode_symbols`), then
+    :func:`ifft_pa_fft_sc`, giving ``[..., n_ant, n_sc]``. With the
+    detections ``det_sym [n_usr, ..., n_sc]`` of an MCNC-MU replica pass,
+    user ``r``'s rows ``[r, ..., n_ant, n_sc]`` precode the symbols with
+    user ``r``'s swapped for ``det_sym[r]``
+    (``reference/corrector.py:405-451``). With ``use_mxu_fft`` and a
+    complex64 transform the kernel takes, one launch of the fused kernel
+    whose load computes the precode
+    (``fused_chain.fused_precoded_mu_ifft_pa_fft``), bit for bit the
+    precode followed by the chain."""
+    n_sc = usr_symbols.shape[-1]
+    inputs = (usr_symbols, v) if det_sym is None else (usr_symbols, v, det_sym)
+    if (use_mxu_fft and fused_chain.kernel_eligible(n_fft, n_sc, "sc")
+            and all(t.dtype == torch.complex64 for t in inputs)):
+        rows = v.shape[:-2].numel() * (1 if det_sym is None else usr_symbols.shape[-2])
+        with span("chain", rows=rows) if enabled() else OFF:
+            return fused_chain.fused_precoded_mu_ifft_pa_fft(
+                usr_symbols, v, sat_power, toi_coeff, det_sym=det_sym, pa_model=pa_model,
+                n_fft=n_fft, rapp_p=rapp_p, storage=mxu_storage)
+    sym = (usr_symbols if det_sym is None
+           else fused_chain.swap_detections(det_sym, usr_symbols))
+    return ifft_pa_fft_sc(precode_symbols(sym, v, sum_users=True), n_fft, pa_model, sat_power,
+                          rapp_p, toi_coeff, use_mxu_fft=use_mxu_fft, mxu_storage=mxu_storage)
 
 
 def array_transmit_fd(bits: torch.Tensor, *, constel_size: int, n_fft: int,

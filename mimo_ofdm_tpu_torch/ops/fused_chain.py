@@ -14,7 +14,9 @@ float32; at bf16 they run the JAX chain's bf16 contract on the tensor
 cores (each pass a bf16 product with float32 sums, its operand rounded to
 bf16 once). The complex-ended entry points hand complex64 to the kernel's
 interleaved layout as it is, which gives the same bits without the planes
-(complex128 still goes through planes).
+(complex128 still goes through planes). The multi-user transmitter's chain
+takes its symbols and precoder to the kernel's precoded_mu layouts, whose
+load computes the joint precode (:func:`fused_precoded_mu_ifft_pa_fft`).
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from __future__ import annotations
 import torch
 
 from mimo_ofdm_tpu_torch.kernels.fused_pa import (check_shapes, fused_ifft_pa_fft,
-                                                  fused_ifft_pa_fft_complex, storage_dtype)
+                                                  fused_ifft_pa_fft_complex,
+                                                  fused_precoded_mu_ifft_pa_fft, precode_users,
+                                                  storage_dtype, swap_detections)
 
 
 def kernel_eligible(n_fft: int, n_io: int, mode: str) -> bool:

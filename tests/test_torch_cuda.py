@@ -444,6 +444,149 @@ def test_precoded_layout_takes_symbol_views(cuda, storage):
     assert out[0].shape == (0, 8, 512) and KERNEL.launches == before
 
 
+# --- the precoded_mu layouts (fused_precoded_mu_ifft_pa_fft) ------------------
+
+def _mu_inputs(g, frames, n_ant, n_usr, n_sc, device, order="users_first"):
+    """Every user's symbols ``[frames, n_usr, n_sc]``, the detections
+    ``[n_usr, frames, n_sc]`` and a precoder ``[frames, n_ant, n_usr, n_sc]``
+    laid out in memory users first (as the joint MRT returns it),
+    contiguously, or with its points strided (as the ZF precoder returns
+    it)."""
+    def cplx(*shape):
+        return torch.complex(torch.randn(*shape, generator=g, device=device),
+                             torch.randn(*shape, generator=g, device=device))
+
+    v = cplx(n_usr, frames, n_ant, n_sc) / math.sqrt(n_ant)
+    v = {"users_first": v.permute(1, 2, 0, 3), "contiguous": v.permute(1, 2, 0, 3).contiguous(),
+         "points_strided": v.permute(1, 3, 2, 0).contiguous().permute(0, 2, 3, 1)}[order]
+    return cplx(frames, n_usr, n_sc), cplx(n_usr, frames, n_sc), v
+
+
+def _precoded_mu_and_eager(usr, v, det, sat, coeff=0.0, storage="bfloat16", **kw):
+    """The precoded_mu layout's output, then the route it replaces on the
+    same inputs (the eager swap and precode, then the interleaved layout),
+    one launch of each, both as their raw bits."""
+    layout = f"precoded_mu_{'bf16' if storage == 'bfloat16' else 'f32'}"
+    before, by_layout = KERNEL.launches, KERNEL.launches_by_layout[layout]
+    got = fused_pa.fused_precoded_mu_ifft_pa_fft(usr, v, sat, coeff, det_sym=det,
+                                                 storage=storage, **kw)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    assert KERNEL.launches_by_layout[layout] == by_layout + 1
+    sym = usr if det is None else fused_pa.swap_detections(det, usr)
+    want = fused_pa.fused_ifft_pa_fft_complex(fused_pa.precode_users(sym, v), sat, coeff,
+                                              mode="sc", storage=storage, **kw)
+    return _bits(got), _bits(want)
+
+
+@pytest.mark.parametrize("n_usr", [2, 3])
+@pytest.mark.parametrize("swap", [False, True])
+@pytest.mark.parametrize("frames,n_ant", [(6, 64), (5, 3)])
+@pytest.mark.parametrize("n_fft,n_sc", [(4096, 2048), (2048, 1024), (1024, 512), (256, 128)])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_precoded_mu_layout_equals_eager_precode_and_kernel(cuda, storage, n_fft, n_sc,
+                                                            frames, n_ant, swap, n_usr):
+    """Bit for bit the eager joint precode (with the replica pass's swap, or
+    without it as the transmitter runs it) followed by the interleaved
+    layout, in both storages, at four sizes, with a saturation power a
+    frame: 64 antennas, and 15 or 45 rows (a ragged last block wherever a
+    block holds more than one row)."""
+    g = torch.Generator(device=cuda).manual_seed(n_fft + frames * n_ant + 7 * swap + n_usr)
+    usr, det, v = _mu_inputs(g, frames, n_ant, n_usr, n_sc, cuda)
+    sat = (torch.rand(frames, 1, generator=g, device=cuda) + 0.2) * 0.5
+    got, want = _precoded_mu_and_eager(usr, v, det if swap else None, sat, storage=storage,
+                                       pa_model="softlim", n_fft=n_fft)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("model", ["none", "rapp", "toi"])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_precoded_mu_layout_other_pa_models(cuda, storage, model):
+    g = torch.Generator(device=cuda).manual_seed(47 + len(model))
+    usr, det, v = _mu_inputs(g, 4, 16, 2, 1024, cuda)
+    sat = torch.rand(2, 4, 16, generator=g, device=cuda) * 0.2 + 0.05
+    coeff = torch.rand(2, 4, 16, generator=g, device=cuda) * 0.5
+    got, want = _precoded_mu_and_eager(usr, v, det, sat, coeff, storage=storage,
+                                       pa_model=model, n_fft=2048)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("order", ["contiguous", "points_strided"])
+def test_precoded_mu_layout_takes_any_precoder_layout(cuda, order):
+    """A contiguous precoder and one whose points are strided (copied
+    first) give the bits of the users-first one; the symbols may be views;
+    zero frames launch nothing."""
+    g = torch.Generator(device=cuda).manual_seed(53)
+    usr, det, v = _mu_inputs(g, 4, 8, 2, 512, cuda, order)
+    strided = det.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not strided.is_contiguous()
+    got, want = _precoded_mu_and_eager(usr.conj(), v, strided, 0.3, pa_model="softlim",
+                                       n_fft=1024)
+    assert torch.equal(got, want)
+    before = KERNEL.launches
+    out = fused_pa.fused_precoded_mu_ifft_pa_fft(usr[:0], v[:0], 0.3, det_sym=det[:, :0],
+                                                 n_fft=1024)
+    assert out.shape == (2, 0, 8, 512) and KERNEL.launches == before
+
+
+def test_precoded_mu_layouts_exist_in_sc_mode_alone_without_spills(cuda):
+    """Each precoded_mu layout is built at every n_fft in sc mode alone,
+    no instantiation of it spills to local memory, and the bf16 one runs
+    on the tensor cores, whose instructions its SASS is read to hold."""
+    got = {}
+    for r in fused_pa.kernel_resources():
+        if r["layout"].startswith("precoded_mu"):
+            assert r["mode"] == "sc" and r["local_bytes"] == 0, r
+            bf16 = r["layout"] == "precoded_mu_bf16"
+            assert r["tensor_cores"] == bf16 and (r["sass_mma"] > 0) == bf16, r
+            got.setdefault(r["layout"], []).append(r["n_fft"])
+    assert {k: sorted(v) for k, v in got.items()} == {
+        layout: [256, 512, 1024, 2048, 4096]
+        for layout in ("precoded_mu_bf16", "precoded_mu_f32")}
+
+
+def test_mcnc_mu_bf16_frame_runs_the_precoded_mu_layout(cuda, monkeypatch):
+    """The two-user MCNC-MU frame at bf16 storage: the TX and every replica
+    pass launch the precoded_mu bf16 layout, ``1 + (n_iters + 1)`` times,
+    and the interleaved bf16 layout never; its counters equal those of the
+    route it replaced (the eager swap and precode, then the interleaved
+    layout). Under the plain versions it launches no kernel, and its totals
+    lie within 1% of the kernel's: the bf16 plain version sums in another
+    order than the tensor cores, so its bits differ (BF16_PLAIN_TOL of
+    chip_smoke.py)."""
+    from mimo_ofdm_tpu_torch.models import link_mu
+    from mimo_ofdm_tpu_torch.ops import fused_chain
+    n_iters = 2
+    cfg = _mu_cfg("mrt", "mcnc_mu", "bfloat16")
+    frame = link_mu.make_mu_frame_fn(cfg, n_iters, link_mu.default_user_positions(),
+                                     device=cuda)
+    draws = link_mu.MuFrameDraws.draw(cfg, 2, 8, torch.Generator(device=cuda).manual_seed(8))
+
+    def counters():
+        r = frame(25.0, draws)
+        return np.concatenate([r.clean_err.cpu().numpy()[..., None], r.dist_err.cpu().numpy()],
+                              axis=-1)
+
+    def eager(usr, v, sat, coeff=0.0, *, det_sym=None, **kw):
+        sym = usr if det_sym is None else fused_pa.swap_detections(det_sym, usr)
+        return fused_chain.fused_ifft_pa_fft_complex(fused_pa.precode_users(sym, v), sat, coeff,
+                                                     mode="sc", **kw)
+
+    by_layout = dict(KERNEL.launches_by_layout)
+    kernel = counters()
+    moved = {k: n - by_layout[k] for k, n in KERNEL.launches_by_layout.items()
+             if n != by_layout[k]}
+    assert moved == {"precoded_mu_bf16": 1 + (n_iters + 1)}
+    launches = KERNEL.launches
+    with kernels.plain_versions():
+        plain = counters()
+    assert KERNEL.launches == launches
+    monkeypatch.setattr(fused_chain, "fused_precoded_mu_ifft_pa_fft", eager)
+    np.testing.assert_array_equal(kernel, counters())
+    assert kernel[..., 1:].sum() > 0
+    assert abs(int(plain[..., 1:].sum()) - int(kernel[..., 1:].sum())) <= 0.01 * kernel[..., 1:].sum()
+
+
 def test_chain_calls_launch_only_the_kernel(cuda):
     """The complex-ended chain calls and fused_ifft_clip_fft run the fused
     kernel once on complex64, in its interleaved layout, and the precoded

@@ -249,9 +249,10 @@ def test_los_frame_counters_equal_with_spans_on_and_off():
 
 
 def _probe_kernel_calls(monkeypatch):
-    """Wrap the fused chain's three entry points, planes and complex (as
-    ``ops/fused_chain.py`` calls them) and precoded (as the planar frame
-    does), so that each call records a ``probe`` span."""
+    """Wrap the fused chain's four entry points, planes and complex (as
+    ``ops/fused_chain.py`` calls them), precoded (as the planar frame does)
+    and the multi-user precoded one (as ``transmit.py`` calls it through
+    ``ops/fused_chain.py``), so that each call records a ``probe`` span."""
     from mimo_ofdm_tpu_torch.models import link_planar
     from mimo_ofdm_tpu_torch.ops import fused_chain
 
@@ -263,7 +264,8 @@ def _probe_kernel_calls(monkeypatch):
 
     for module, name in ((fused_chain, "fused_ifft_pa_fft"),
                          (fused_chain, "fused_ifft_pa_fft_complex"),
-                         (link_planar, "fused_precoded_ifft_pa_fft")):
+                         (link_planar, "fused_precoded_ifft_pa_fft"),
+                         (fused_chain, "fused_precoded_mu_ifft_pa_fft")):
         monkeypatch.setattr(module, name, probed(getattr(module, name)))
 
 
@@ -353,8 +355,9 @@ def test_mu_frame_stage_tree(alg):
 
 
 def test_every_kernel_call_of_the_mu_frame_runs_inside_a_chain_span(monkeypatch):
-    """The two-user frame's chain calls (complex-ended: the TX and every
-    replica) each run with a ``chain`` span as the innermost one open."""
+    """The two-user frame's chain calls (the TX and every replica; the
+    multi-user precoded entry point, or the complex one for the CNC
+    replicas) each run with a ``chain`` span as the innermost one open."""
     _probe_kernel_calls(monkeypatch)
     for alg in ("mcnc_mu", "cnc"):
         rec = _mu_frame_with_spans(alg)[2]
