@@ -21,6 +21,15 @@ The coded frames follow the JAX source's order, which is not the uncoded
 complex frame's: the clean run propagates ``precode_symbols(sym, v)``
 through ``channels.propagate``, and the replicas take JAX's arguments as
 they are (no ``alpha`` or ``rapp_p`` for CNC, no ``toi_coeff`` for MCNC).
+
+Each coded frame call runs inside a ``frame`` span (``frames=B``) with the
+planar frame's stages as its children (``utils/spans.py``):
+``frame.channel``, ``frame.precoder`` (MRT, saturation power, AGC),
+``frame.clean``, the distorted TX's ``chain``, ``frame.awgn``, the
+receiver's ``rx.pass`` spans, the demapper's ``soft_demap``, the decoder's
+``decode`` (``ops/ldpc.py::decode`` counts its ``codewords`` and
+``iters``) and ``frame.count``; building the front end is
+``setup.frame_fn``.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from mimo_ofdm_tpu_torch.ops import noise as noise_ops
 from mimo_ofdm_tpu_torch.ops import ofdm
 from mimo_ofdm_tpu_torch.utils.config import LinkConfig
 from mimo_ofdm_tpu_torch.utils.device import resolve_device
+from mimo_ofdm_tpu_torch.utils.spans import OFF, enabled, span
 
 
 class CodedFrameCounters(NamedTuple):
@@ -141,6 +151,11 @@ def _coded_link(cfg: LinkConfig, reroll: bool, dev: torch.device):
     modulate, precode, propagate, noise, AGC divide); the distorted run
     (encode, one chain launch over the ``B x n_ant`` rows, propagate,
     noise, AGC divide); and the CNC or MCNC replica."""
+    with span("setup.frame_fn"):
+        return _build_coded_link(cfg, reroll, dev)
+
+
+def _build_coded_link(cfg: LinkConfig, reroll: bool, dev: torch.device):
     _check_single_user(cfg)
     m = cfg.modem.constel_size
     n_fft, n_sc = cfg.modem.n_fft, cfg.modem.n_sub_carr
@@ -156,24 +171,28 @@ def _coded_link(cfg: LinkConfig, reroll: bool, dev: torch.device):
 
     def run(snr_db, draws: FrameDraws, encode, incl_clean: bool):
         b = draws.batch
-        h_sc = channel_fn(tx_pos, draws).expand(b, n_ant, n_sc)
-        v = precoder(h_sc)
-        sat_pow = precoding.pa_sat_power(ibo_db, avg_samp_pow, v)[:, None]
-        agc = agc_mod.compute_agc_sc(h_sc, v, ibo_db, n_ant)
+        with span("frame.channel"):
+            h_sc = channel_fn(tx_pos, draws).expand(b, n_ant, n_sc)
+        with span("frame.precoder"):
+            v = precoder(h_sc)
+            sat_pow = precoding.pa_sat_power(ibo_db, avg_samp_pow, v)[:, None]
+            agc = agc_mod.compute_agc_sc(h_sc, v, ibo_db, n_ant)
         rx_c = None
-        if incl_clean:
-            sym_c = qam.modulate_bits(encode(draws.bits_c.to(dev)), m)
-            rx = channels.propagate(h_sc, transmit.precode_symbols(sym_c, v))
-            rx = noise_ops.awgn(rx, snr_db, avg_sym_pow * agc.hk_vk_noise_scaler,
-                                noise_ops.complex_normal(draws.noise_c.to(dev)))
-            rx_c = rx / agc.hk_vk_agc_sc
+        with span("frame.clean"):
+            if incl_clean:
+                sym_c = qam.modulate_bits(encode(draws.bits_c.to(dev)), m)
+                rx = channels.propagate(h_sc, transmit.precode_symbols(sym_c, v))
+                rx = noise_ops.awgn(rx, snr_db, avg_sym_pow * agc.hk_vk_noise_scaler,
+                                    noise_ops.complex_normal(draws.noise_c.to(dev)))
+                rx_c = rx / agc.hk_vk_agc_sc
         fd_dist_sc = transmit.array_transmit_sc(
             encode(draws.bits_d.to(dev)), constel_size=m, n_fft=n_fft, v=v,
             pa_model=pa_model, sat_power=sat_pow, rapp_p=rapp_p, **mxu)
-        rx_d = noise_ops.awgn(channels.propagate(h_sc, fd_dist_sc), snr_db,
-                              avg_sym_pow * agc.ak_hk_vk_noise_scaler,
-                              noise_ops.complex_normal(draws.noise_d.to(dev)))
-        rx_sc = rx_d / agc.ak_hk_vk_agc_sc
+        with span("frame.awgn"):
+            rx_d = noise_ops.awgn(channels.propagate(h_sc, fd_dist_sc), snr_db,
+                                  avg_sym_pow * agc.ak_hk_vk_noise_scaler,
+                                  noise_ops.complex_normal(draws.noise_d.to(dev)))
+            rx_sc = rx_d / agc.ak_hk_vk_agc_sc
         if cfg.rx.algorithm == "mcnc":
             replica = receivers.make_mcnc_replica(
                 h_sc, v, agc.ak_hk_vk_agc_sc, constel_size=m, n_fft=n_fft, n_sc=n_sc,
@@ -204,6 +223,17 @@ def _split_clean(x: torch.Tensor, incl_clean: bool) -> tuple[torch.Tensor, torch
     return clean, taps.T.contiguous()
 
 
+def _framed(frame):
+    """``frame(snr_db, ibo_db, draws, batch, generator)`` run inside a
+    ``frame`` span that counts its ``frames``, the span a round is counted
+    by."""
+    def inside(snr_db, ibo_db, draws, batch, generator):
+        with (span("frame", frames=batch if draws is None else draws.batch) if enabled()
+              else OFF):
+            return frame(snr_db, ibo_db, draws, batch, generator)
+    return inside
+
+
 def make_coded_frame_fn(cfg: LinkConfig, n_iters: int, code: ldpc.QcLdpcCode | None = None,
                         ldpc_iters: int = 25, *, incl_clean: bool = True,
                         reroll: bool = True, device=None):
@@ -221,6 +251,7 @@ def make_coded_frame_fn(cfg: LinkConfig, n_iters: int, code: ldpc.QcLdpcCode | N
     m = cfg.modem.constel_size
     run = _coded_link(cfg, reroll, dev)
 
+    @_framed
     def frame(snr_db, _ibo_db, draws, batch, generator) -> CodedFrameCounters:
         if draws is None:
             draws = FrameDraws.draw(cfg, batch, generator, reroll=reroll, n_bits=code.k)
@@ -229,10 +260,12 @@ def make_coded_frame_fn(cfg: LinkConfig, n_iters: int, code: ldpc.QcLdpcCode | N
         llr = decoder_llr(_with_clean(rx_c, corr_all), m,
                           noise_var(cfg.modem.avg_symbol_power, snr_db))
         hard = ldpc.decode(code, llr, n_iters=ldpc_iters)
-        info_c = draws.bits_c.to(dev) if incl_clean else None
-        info = _with_clean(info_c, draws.bits_d.to(dev).expand(n_iters + 1, -1, -1))
-        clean, dist = _split_clean(bits_ops.count_bit_errors(info, hard, axis=-1), incl_clean)
-        return CodedFrameCounters(clean_err=clean, dist_err=dist)
+        with span("frame.count"):
+            info_c = draws.bits_c.to(dev) if incl_clean else None
+            info = _with_clean(info_c, draws.bits_d.to(dev).expand(n_iters + 1, -1, -1))
+            clean, dist = _split_clean(bits_ops.count_bit_errors(info, hard, axis=-1),
+                                       incl_clean)
+            return CodedFrameCounters(clean_err=clean, dist_err=dist)
 
     return frame_signature(frame, False, cfg.pa.ibo_db)
 
@@ -255,6 +288,7 @@ def make_transport_frame_fn(cfg: LinkConfig, n_iters: int, chain: transport.Tran
     m = cfg.modem.constel_size
     run = _coded_link(cfg, reroll, dev)
 
+    @_framed
     def frame(snr_db, _ibo_db, draws, batch, generator) -> TransportFrameCounters:
         if draws is None:
             draws = FrameDraws.draw(cfg, batch, generator, reroll=reroll, n_bits=chain.a)
@@ -268,14 +302,15 @@ def make_transport_frame_fn(cfg: LinkConfig, n_iters: int, chain: transport.Tran
         pay, ok = transport.transport_decode(chain, llr, n_iters=ldpc_iters,
                                              algorithm=ldpc_algorithm,
                                              serial_blocks=serial_decode)
-        sent = draws.bits_d.to(dev).expand(n_iters + 1, -1, -1)
-        if incl_clean:
-            sent = torch.cat([draws.bits_c.to(dev)[None], sent])
-        clean_err, dist_err = _split_clean(bits_ops.count_bit_errors(sent, pay, axis=-1),
-                                           incl_clean)
-        clean_blk, dist_blk = _split_clean((~ok).to(torch.int32), incl_clean)
-        return TransportFrameCounters(clean_err=clean_err, clean_blk=clean_blk,
-                                      dist_err=dist_err, dist_blk=dist_blk)
+        with span("frame.count"):
+            sent = draws.bits_d.to(dev).expand(n_iters + 1, -1, -1)
+            if incl_clean:
+                sent = torch.cat([draws.bits_c.to(dev)[None], sent])
+            clean_err, dist_err = _split_clean(bits_ops.count_bit_errors(sent, pay, axis=-1),
+                                               incl_clean)
+            clean_blk, dist_blk = _split_clean((~ok).to(torch.int32), incl_clean)
+            return TransportFrameCounters(clean_err=clean_err, clean_blk=clean_blk,
+                                          dist_err=dist_err, dist_blk=dist_blk)
 
     return frame_signature(frame, False, cfg.pa.ibo_db)
 
@@ -296,6 +331,7 @@ def make_transport_inloop_frame_fn(cfg: LinkConfig, n_iters: int,
     m = cfg.modem.constel_size
     run = _coded_link(cfg, reroll, dev)
 
+    @_framed
     def frame(snr_db, _ibo_db, draws, batch, generator) -> TransportFrameCounters:
         if draws is None:
             draws = FrameDraws.draw(cfg, batch, generator, reroll=reroll, n_bits=chain.a)

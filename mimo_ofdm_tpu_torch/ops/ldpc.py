@@ -22,12 +22,13 @@ per code on the host and kept on each device:
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from mimo_ofdm_tpu_torch.utils.spans import spanned
+from mimo_ofdm_tpu_torch.utils.spans import OFF, enabled, span
 
 
 @dataclass(frozen=True)
@@ -172,7 +173,6 @@ def encode(code: QcLdpcCode, info_bits: torch.Tensor) -> torch.Tensor:
     return torch.cat([c, p.flatten(-2).to(torch.int8)], dim=-1)
 
 
-@spanned("decode")
 def decode(code: QcLdpcCode, llr: torch.Tensor, n_iters: int = 25,
            normalization: float = 0.75, algorithm: str = "minsum") -> torch.Tensor:
     """Flooding BP decode (``mimo_ofdm_tpu/ops/ldpc.py:190-267``):
@@ -180,9 +180,17 @@ def decode(code: QcLdpcCode, llr: torch.Tensor, n_iters: int = 25,
     phi-function form with JAX's clamps to [1e-6, 30]; MATLAB
     ``nrLDPCDecode``'s default, ``reference/main_cnc_mcnc_w_ldpc/
     mp_ldpc_model.py:174-175``). ``llr [..., N]``, positive = bit 0.
-    Returns the hard info bits ``[..., K]`` int8."""
+    Returns the hard info bits ``[..., K]`` int8. Runs inside a ``decode``
+    span that counts the ``codewords`` decoded and their ``iters``."""
     if algorithm not in ("minsum", "sumprod"):
         raise ValueError(f"unknown LDPC decoder {algorithm!r}")
+    with (span("decode", codewords=math.prod(llr.shape[:-1]), iters=n_iters) if enabled()
+          else OFF):
+        return _decode(code, llr, n_iters, normalization, algorithm)
+
+
+def _decode(code: QcLdpcCode, llr: torch.Tensor, n_iters: int, normalization: float,
+            algorithm: str) -> torch.Tensor:
     chk_var_idx, chk_mask, var_slot_idx, var_mask = decode_tables(code, llr.device)
     llr = llr.to(torch.float32)
     lead = llr.shape[:-1]

@@ -1,9 +1,10 @@
-"""The span recorder (``utils/spans.py``) and the spans at the planar and
-multi-user frames' stages, on the CPU: off it hands back one shared object
-and keeps nothing; on it keeps the nesting, the rounds and the counts; a
-CNC and an MCNC frame, and the two-user frame with each of its receivers,
-give the stage tree ``PERF.md`` §3 lists, with counters bit-identical on
-and off; spans land on the profiler's trace clock."""
+"""The span recorder (``utils/spans.py``) and the spans at the planar,
+multi-user and coded frames' stages, on the CPU: off it hands back one
+shared object and keeps nothing; on it keeps the nesting, the rounds and
+the counts; a CNC and an MCNC frame, the two-user frame with each of its
+receivers, and the LDPC-coded frame with CNC and MCNC give the stage tree
+``PERF.md`` §3 lists, with counters bit-identical on and off; spans land
+on the profiler's trace clock."""
 
 import ast
 import gc
@@ -375,3 +376,68 @@ def test_profiling_recording_restores_the_recorder():
     with profiling.recording() as rec:
         pass
     assert spans.enabled()
+
+
+LDPC_ITERS = 3
+
+
+def _coded_frame_with_spans(alg: str):
+    """The coded link's transport frame (``ldpc_ref_ber``'s: the
+    reference's transport sizing, sum-product) at n_fft 256 on LOS, fixed
+    draws, spans off, then on: the counters of both, the spans of building
+    it and those of the call that was recorded."""
+    from mimo_ofdm_tpu_torch.experiments.ber_sweeps import coded_link_config
+    from mimo_ofdm_tpu_torch.models import link_ldpc
+
+    cfg = coded_link_config("los", alg, N_ANT, 0.0, small=True)
+    chain = link_ldpc.reference_chain(cfg, 0.5)
+    spans.enable()
+    frame_fn = link_ldpc.make_transport_frame_fn(cfg, N_ITERS, chain, LDPC_ITERS,
+                                                 ldpc_algorithm="sumprod", device="cpu")
+    built = spans.collect()
+    spans.disable()
+    draws = link.FrameDraws.draw(cfg, BATCH, torch.Generator().manual_seed(7), n_bits=chain.a)
+    off = frame_fn(10.0, draws)
+    spans.enable()
+    on = frame_fn(10.0, draws)
+    return off, on, built, spans.collect()
+
+
+@pytest.mark.parametrize("alg", ["cnc", "mcnc"])
+def test_coded_frame_counters_equal_with_spans_on_and_off(alg):
+    off, on, _, _ = _coded_frame_with_spans(alg)
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("alg", ["cnc", "mcnc"])
+def test_coded_frame_stage_tree(alg):
+    """The planar frame's stages around the coded receiver: the passes, the
+    demapper of the passes and of the clean run, one decode of every
+    (frame, pass) codeword, the count."""
+    _, _, built, rec = _coded_frame_with_spans(alg)
+    assert [s.name for s in built] == ["setup.frame_fn"]
+    top = [s for s in rec if s.parent == -1]
+    assert [s.name for s in top] == ["frame"] and top[0].counts == {"frames": BATCH}
+    assert {s.round for s in rec} == {0}
+    children = [s.name for s in rec if s.parent == 0]
+    assert children == ["frame.channel", "frame.precoder", "frame.clean", "chain", "frame.awgn",
+                        *["rx.pass"] * (N_ITERS + 1), "soft_demap", "soft_demap", "decode",
+                        "frame.count"]
+    tx_chain = next(s for s in rec if s.name == "chain" and s.parent == 0)
+    assert tx_chain.counts == {"rows": BATCH * N_ANT}
+    for i in (i for i, s in enumerate(rec) if s.name == "rx.pass"):
+        assert [s.name for s in rec if s.parent == i] == ["rx.detect", "rx.replica", "rx.update"]
+
+
+def test_the_coded_decode_span_counts_codewords_and_iterations_once():
+    """``ops/ldpc.py::decode``'s span counts the codewords it decodes and
+    their iterations; the transport decode around it counts nothing, so no
+    codeword is counted twice."""
+    _, _, _, rec = _coded_frame_with_spans("cnc")
+    decodes = [(i, s) for i, s in enumerate(rec) if s.name == "decode"]
+    assert len(decodes) == 2
+    (outer_i, outer), (_, inner) = decodes
+    assert outer.parent == 0 and outer.counts == {}
+    assert inner.parent == outer_i
+    assert inner.counts == {"codewords": BATCH * (N_ITERS + 2), "iters": LDPC_ITERS}
