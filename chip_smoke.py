@@ -21,7 +21,13 @@ Phases, each printing one JSON line:
    LOS b32's [32, 64, 2048] bf16 planes beside its bound (the four planes
    in, complex64 out, at 3.35 TB/s) and its plain version (the eager
    expression it replaces), within 1e-5 relative L2 of it and the same
-   bits on a second call.
+   bits on a second call. Then the LDPC decoder kernels
+   (csrc/ldpc_decode.cu): their build and resources (no spills, 8 blocks an
+   SM), and a decode of a coded round's [160, 19584] codewords (BG1, Zc
+   288, 12 sum-product iterations) timed beside its bound (14.6 us) and
+   the plain version, with the same bits on a second call, and the block
+   outcomes and bits agreeing with the plain version's on 99% and 99.9%
+   of them.
 3. kernel: the fused_pa kernel against its plain PyTorch version on the
    card (full/sc modes, f32/bf16 planes, every PA model, every n_fft, a
    ragged last block at every n_fft below 4096, one row and zero rows,
@@ -91,14 +97,20 @@ Phases, each printing one JSON line:
    LOS, IBO 0 dB, 8 CNC iterations, rate 1/2: A = 6144, CRC24A, BG1, Zc
    288, one code block; 12 sum-product iterations), one round of 16 frames
    per receiver at Eb/N0 1 dB with 10 launches a round, sane BERs and
-   BLERs (clean BER at most iteration 0's), frames/s, device ms by op class
-   (decode, soft demap, chain, rest) and peak memory; one round of
+   BLERs (clean BER at most iteration 0's), every decode on the decoder
+   kernels, frames/s, device ms by op class (decode, soft demap, chain,
+   rest) and peak memory; one round of
    ``ldpc_in_loop_ber``'s defaults (rate 1/3, 16 antennas, 3 iterations: 5
    launches) and of the raw IRA codeword of ``ldpc_coded_ber(family="ira")``;
-   f32 coded frames (CNC, MCNC, 2 frames) equal through the kernel and the
-   plain version; a two-point ``ldpc_ref_ber`` sweep (Eb/N0 1 and 5 dB, 3
-   rounds a point) whose BER and BLER CSVs are checked for name and layout,
-   with its ratio to the committed nant64 curve printed.
+   f32 coded frames (CNC, MCNC, 16 frames) equal through the fused and
+   combine kernels and through their plain versions (the decoder plain on
+   both sides), and through the decoder kernels and the decoder's plain
+   version, which get the same LLRs bit for bit, with the decoded counters
+   within the decoder kernels' bound (payload bit errors within 0.1% of the
+   bits decoded, failed blocks within 1% of the codewords); a two-point
+   ``ldpc_ref_ber`` sweep (Eb/N0 1 and 5 dB, 3 rounds a point) whose BER
+   and BLER CSVs are checked for name and layout, with its ratio to the
+   committed nant64 curve printed.
 13. analysis: the distortion-analysis family at full width, every
    distorted transmit through the kernel at f32 planes (``sc`` mode for
    the power, SDR, alpha and SISO scans, ``full`` mode for the PSDs):
@@ -154,8 +166,9 @@ Phases, each printing one JSON line:
    bf16 planes, the CNC replica pass interleaved), timed as in phase 6.
 
 Then the ``{"kernels": [...]}`` line, one row per I/O layout with the
-paths' launches in it and one for the antenna combine kernel (its
-launches in the paths' timed rounds, which drive_path checks), the
+paths' launches in it, one for the antenna combine kernel (its
+launches in the paths' timed rounds, which drive_path checks) and one for
+the decoder kernels (their decodes in phase 12's timed rounds), the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero without the last
 line; so does a machine with no CUDA device, or a directory without the
@@ -176,6 +189,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -197,6 +211,7 @@ PRECODED_LAYOUTS = ("precoded_bf16", "precoded_f32", "precoded_mu_bf16")
 RESULTS: dict = {}
 LAYOUT_LAUNCHES: dict = {}      # the paths' kernel launches by I/O layout, summed
 COMBINE_LAUNCHES = [0]          # the combine kernel's launches in drive_path's rounds
+DECODE_LAUNCHES = [0]           # the decoder kernels' decodes in drive_coded's rounds
 
 
 def zero_launches(kern) -> None:
@@ -937,15 +952,19 @@ def drive_coded(fp, profiling, name: str, round_fn, n_iters: int, payload_bits: 
     """One timed coded round after a warm-up, with the launch count zeroed
     just before and read just after and the peak memory reset before it;
     then the op-class profile of one more round. Fails unless there are
-    ``n_iters + 2`` launches (TX and every replica pass), every BER is in
-    [0, 0.5), every BLER in [0, 1], and the clean BER is at most iteration
-    0's."""
+    ``n_iters + 2`` launches (TX and every replica pass), the round's
+    decodes ran on the decoder kernels (``ldpc_decode.launches`` at least
+    1), every BER is in [0, 0.5), every BLER in [0, 1], and the clean BER is
+    at most iteration 0's."""
+    from mimo_ofdm_tpu_torch.kernels import ldpc_decode as kd
+
     kern = fp.fused_ifft_pa_fft
     round_fn(0, 10_000, snr)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     zero_launches(kern)
+    kd.ldpc_decode.launches = 0
     t0 = time.perf_counter()
     start.record()
     total = round_fn(0, 0, snr)
@@ -953,6 +972,8 @@ def drive_coded(fp, profiling, name: str, round_fn, n_iters: int, payload_bits: 
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches(kern)
+    decodes = kd.ldpc_decode.launches
+    DECODE_LAUNCHES[0] += decodes
     peak = torch.cuda.max_memory_allocated()
     counts = total.cpu().tolist()
     n = n_iters + 2
@@ -961,12 +982,14 @@ def drive_coded(fp, profiling, name: str, round_fn, n_iters: int, payload_bits: 
     prof = profiling.profile_coded_round(round_fn, 1, snr)
     line = {"path": name, "batch": batch, "snr_db": snr, "counters": counts, "ber": ber,
             "bler": bler, "launches": launches, "expected_launches": n,
-            "seconds": dt, "frames_per_s": batch / dt,
+            "decoder_kernel_decodes": decodes, "seconds": dt, "frames_per_s": batch / dt,
             "stream_ms": start.elapsed_time(end), "peak_memory_bytes": peak,
             "profile": prof, "card": card}
     print(json.dumps({"phase": "coded", **line}), flush=True)
     if launches != n:
         raise AssertionError(f"coded {name}: {launches} kernel launches, expected {n}")
+    if decodes < 1:
+        raise AssertionError(f"coded {name}: no decode ran on the decoder kernels")
     if (not all(0 <= b < 0.5 for b in ber) or not all(0 <= b <= 1 for b in bler)
             or not ber[0] <= ber[1] or (blocks and len(bler) != n)):
         raise AssertionError(f"coded {name}: insane counters {counts}")
@@ -974,11 +997,33 @@ def drive_coded(fp, profiling, name: str, round_fn, n_iters: int, payload_bits: 
 
 
 def coded_kernel_vs_plain(link, link_ldpc, ber_sweeps, dev, snr: float,
-                          batch: int = 2, n_ant: int = 64, small: bool = False) -> dict:
+                          batch: int = CODED_BATCH, n_ant: int = 64,
+                          small: bool = False) -> dict:
     """f32 coded frames of ldpc_ref_ber's configuration with fixed draws,
-    through the kernel and through the plain version forced on CUDA
-    tensors: the counters must be equal."""
+    three times: through every kernel; through the fused and combine kernels
+    with the decoder's plain version; through every plain version forced on
+    CUDA tensors. The last two must give equal counters (the fused and
+    combine kernels against their plain versions, which produce the
+    decoder's input LLRs). The first two must hand the decoder the same LLRs
+    bit for bit, and their decoded counters are held to the decoder kernels'
+    bound (``tests/test_torch_ldpc_decode.py``): the kernels' float32 sums
+    run in another order than PyTorch's reductions, which turns a few
+    marginal decodes, so the payload bit errors may differ by at most ``1 -
+    DECODE_BIT_AGREE`` of the bits decoded and the failed blocks by at most
+    ``1 - DECODE_BLOCK_AGREE`` of the codewords."""
+    from mimo_ofdm_tpu_torch import kernels
+    from mimo_ofdm_tpu_torch.kernels import ldpc_decode as kd
+    from mimo_ofdm_tpu_torch.ops import ldpc
+
     res = {}
+    seen = []
+    plain_decoder = [False]
+
+    def decode(code, llr, *args):
+        seen.append(llr.clone())
+        with kernels.plain_versions() if plain_decoder[0] else contextlib.nullcontext():
+            return kd.ldpc_decode(code, llr, *args)
+
     for alg in ("cnc", "mcnc"):
         cfg = ber_sweeps.coded_link_config("los", alg, n_ant, 0.0, small).replace(
             mxu_fft_storage="float32")
@@ -988,14 +1033,32 @@ def coded_kernel_vs_plain(link, link_ldpc, ber_sweeps, dev, snr: float,
         draws = link.FrameDraws.draw(cfg, batch, torch.Generator(device=dev).manual_seed(11),
                                      n_bits=chain.a)
         got = {}
-        for plain in (False, True):
-            with routed(plain):
-                c = frame(snr, draws)
-            got[plain] = [x.cpu().tolist() for x in c]
-        line = {"frame": f"coded_{alg}", "batch": batch, "snr_db": snr, "kernel": got[False],
-                "plain": got[True], "equal": got[False] == got[True]}
+        seen.clear()
+        ldpc.ldpc_decode = types.SimpleNamespace(ldpc_decode=decode)
+        try:
+            for route in ("kernels", "plain_decoder", "plain"):
+                plain_decoder[0] = route == "plain_decoder"
+                with routed(route == "plain"):
+                    c = frame(snr, draws)
+                got[route] = [x.cpu().numpy() for x in c]
+        finally:
+            ldpc.ldpc_decode = kd
+        err = [np.abs(k - p).sum() for k, p in zip(got["kernels"], got["plain_decoder"])]
+        words = (N_ITERS + 2) * batch * chain.c
+        bit_diff, blk_diff = int(err[0] + err[2]), int(err[1] + err[3])
+        line = {"frame": f"coded_{alg}", "batch": batch, "snr_db": snr,
+                **{route: [x.tolist() for x in c] for route, c in got.items()},
+                "kernels_equal_plain": all(np.array_equal(k, p) for k, p in
+                                           zip(got["plain_decoder"], got["plain"])),
+                "llr_equal": bool(torch.equal(seen[0].view(torch.int32),
+                                              seen[1].view(torch.int32))),
+                "bit_error_diff": bit_diff, "bits_decoded": words * chain.a,
+                "block_diff": blk_diff, "codewords": words,
+                "decoder_equal": all(e == 0 for e in err)}
         print(json.dumps({"phase": "frame", **line}), flush=True)
-        if not line["equal"]:
+        if not (line["kernels_equal_plain"] and line["llr_equal"]
+                and bit_diff <= (1 - DECODE_BIT_AGREE) * words * chain.a
+                and blk_diff <= (1 - DECODE_BLOCK_AGREE) * words):
             raise AssertionError(f"coded_{alg}: kernel and plain frames disagree: {line}")
         res[alg] = line
     return res
@@ -2490,6 +2553,99 @@ def combine_row(build: dict, times: dict, smi: str) -> dict:
             "shapes": times, "card": smi}
 
 
+# the decoder kernels' timing shape: the codewords of an ldpc_ref.cnc.b16
+# round (16 frames, the clean run and 9 CNC passes each) of BG1 at Zc 288
+DECODE_WORDS = 160
+DECODE_ITERS = 12
+DECODE_SIGMA = 0.88             # BPSK noise under which every word decodes (on an H100)
+# the share of codewords whose outcome, and of bits, that the decoder
+# kernels and the plain version decode alike (tests/test_torch_ldpc_decode.py)
+DECODE_BLOCK_AGREE = 0.99
+DECODE_BIT_AGREE = 0.999
+DECODE_OPS_PER_EDGE = 6         # portbench/roofline_ldpc.py's count, at its least
+
+
+def decode_build(kd) -> dict:
+    """The decoder kernels' build (``csrc/ldpc_decode.cu``): ptxas's report
+    and each instantiation's resources. Fails if one spills or holds fewer
+    than 8 blocks an SM."""
+    t0 = time.perf_counter()
+    _, ptxas = kd.build_library()
+    seconds = time.perf_counter() - t0
+    print(ptxas, flush=True)
+    resources = kd.kernel_resources()
+    line = {"seconds": seconds, "instantiations": resources}
+    emit("decode_build", **line)
+    check(all(r["local_bytes"] == 0 and r["blocks_per_sm"] >= 8 for r in resources),
+          "decoder kernels: no spills, 8 blocks an SM", line, "decode_build")
+    return line
+
+
+def decode_timing(kd, nr_ldpc, dev, card: str = "") -> dict:
+    """The decoder kernels at a coded round's ``[160, 19584]`` (BG1, Zc 288,
+    12 sum-product iterations; BPSK LLRs under which every word decodes,
+    the 2 Zc punctured bits at 0; the time does not depend on the LLRs):
+    CUDA events and graph replay of a decode, the plain version's time
+    (forced on CUDA), the bound (6 operations an edge an iteration at the
+    float32 peak against the LLRs in and hard bits out at 3.35 TB/s: 14.6
+    us), and the agreement with the plain version. Fails
+    unless two decodes give the same bits and the block outcomes and bits
+    agree with the plain version's on ``DECODE_BLOCK_AGREE`` and
+    ``DECODE_BIT_AGREE`` of them."""
+    code = nr_ldpc.make_nr_code(1, 288)
+    g = torch.Generator(device=dev).manual_seed(25)
+    info = torch.randint(0, 2, (DECODE_WORDS, code.k), generator=g, device=dev,
+                         dtype=torch.int8)
+    y = (1.0 - 2.0 * nr_ldpc.encode(code, info).float()
+         + DECODE_SIGMA * torch.randn(DECODE_WORDS, code.n, generator=g, device=dev))
+    llr = 2.0 * y / DECODE_SIGMA ** 2
+    llr[:, :2 * code.z] = 0.0
+
+    def kernel():
+        return kd.ldpc_decode(code, llr, DECODE_ITERS, algorithm="sumprod")
+
+    def plain():
+        with routed(True):
+            return kernel()
+
+    got, again, ref = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    edges = sum(x >= 0 for row in code.base for x in row) * code.z
+    n_ops = DECODE_OPS_PER_EDGE * edges * DECODE_ITERS * DECODE_WORDS
+    n_bytes = DECODE_WORDS * (4 * code.n + code.k)
+    t_ops, t_bytes = n_ops / H100_F32_FLOPS * 1e3, n_bytes / H100_BYTES_PER_S * 1e3
+    ok_got, ok_ref = (got == info).all(-1), (ref == info).all(-1)
+    line = {"shape": [DECODE_WORDS, code.n], "iters": DECODE_ITERS, "algorithm": "sumprod",
+            "ms": time_ms(kernel), "graph_ms": graph_ms(kernel),
+            "plain_ms": time_ms(plain, n=3, warmup=1),
+            "operations": n_ops, "bytes": n_bytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "words_decoded": int(ok_got.sum()), "plain_words_decoded": int(ok_ref.sum()),
+            "block_agree": float((ok_got == ok_ref).double().mean()),
+            "bit_agree": float((got == ref).double().mean()),
+            "deterministic": bool(torch.equal(got, again)), "card": card}
+    line["bound_share"] = line["bound_ms"] / line["ms"]
+    line["graph_bound_share"] = line["bound_ms"] / line["graph_ms"]
+    emit("decode_timing", **line)
+    check(line["deterministic"] and line["block_agree"] >= DECODE_BLOCK_AGREE
+          and line["bit_agree"] >= DECODE_BIT_AGREE,
+          "decoder kernels against the plain version", line, "decode_timing")
+    return line
+
+
+def decode_row(build: dict, times: dict, smi: str) -> dict:
+    """The decoder kernels' row of the ``{"kernels": [...]}`` line: their
+    decodes in the coded paths' timed rounds (drive_coded) and their times
+    at a coded round's codewords."""
+    return {"name": "ldpc_decode", "route": "cuda",
+            "source": "mimo_ofdm_tpu_torch/csrc/ldpc_decode.cu", "replaces": None,
+            "launches": DECODE_LAUNCHES[0],
+            "registers": [r["registers"] for r in build["instantiations"]],
+            **{f: times[f] for f in ("shape", "ms", "graph_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "bound_share", "block_agree", "bit_agree")},
+            "card": smi}
+
+
 def kernels_line(paths: dict, times: dict, analysis_times: dict, smi: str) -> dict:
     """The ``{"kernels": [...]}`` line: one row per I/O layout of the
     kernel, with the launches the paths made in it (``LAYOUT_LAUNCHES``)
@@ -2614,6 +2770,10 @@ def main() -> int:
     from mimo_ofdm_tpu_torch.kernels import antenna_combine as ac
     combine = combine_build(ac)
     combine_times = combine_timing(ac, dev, smi)
+    from mimo_ofdm_tpu_torch.kernels import ldpc_decode as kd
+    from mimo_ofdm_tpu_torch.ops import nr_ldpc
+    decoder = decode_build(kd)
+    decode_times = decode_timing(kd, nr_ldpc, dev, smi)
 
     emit("kernel_summary", **kernel_checks(fp, dev))
     snr_los = float(metrics.ebn0_to_snr(CANONICAL_EBN0_DB, 2048, 2048, 64))
@@ -2636,11 +2796,12 @@ def main() -> int:
     times.update(bench_shapes(fp, ofdm, dev, paths["bench"]["settings"], smi))
     kernels = kernels_line(paths, times, analysis_times, smi)
     kernels["kernels"].append(combine_row(combine, combine_times, smi))
+    kernels["kernels"].append(decode_row(decoder, decode_times, smi))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"results": RESULTS, "main_path": paths, "timing": times,
-                       "combine_timing": combine_times,
+                       "combine_timing": combine_times, "decode_timing": decode_times,
                        "analysis_timing": analysis_times, **kernels}, f, indent=1,
                       default=str)
     print(json.dumps(kernels), flush=True)

@@ -13,10 +13,13 @@ per code on the host and kept on each device:
   systematic bits it touches and a sum mod 2 (JAX rolls ``m_b x k_b``
   blocks one by one);
 * decoding: flooding belief propagation, normalized min-sum or
-  sum-product, the same arithmetic as JAX's. The check-to-variable
-  messages are kept in the padded check-row layout ``[..., n_chk, d_c]``,
-  which saves JAX's two gathers between its flat edge vector and that
-  layout; each message meets the same operations in the same order.
+  sum-product, the same arithmetic as JAX's. On CUDA tensors
+  :func:`decode` runs the hand-written kernels of
+  ``kernels/ldpc_decode.py`` (two launches an iteration, the messages in
+  the code's block layout); the plain version, :func:`_decode`, keeps the
+  check-to-variable messages in the padded check-row layout ``[..., n_chk,
+  d_c]``, which saves JAX's two gathers between its flat edge vector and
+  that layout; each message meets the same operations in the same order.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from mimo_ofdm_tpu_torch.kernels import ldpc_decode
 from mimo_ofdm_tpu_torch.utils.spans import OFF, enabled, span
 
 
@@ -181,12 +185,14 @@ def decode(code: QcLdpcCode, llr: torch.Tensor, n_iters: int = 25,
     ``nrLDPCDecode``'s default, ``reference/main_cnc_mcnc_w_ldpc/
     mp_ldpc_model.py:174-175``). ``llr [..., N]``, positive = bit 0.
     Returns the hard info bits ``[..., K]`` int8. Runs inside a ``decode``
-    span that counts the ``codewords`` decoded and their ``iters``."""
-    if algorithm not in ("minsum", "sumprod"):
-        raise ValueError(f"unknown LDPC decoder {algorithm!r}")
+    span that counts the ``codewords`` decoded and their ``iters``; the
+    LLRs are taken as contiguous float32, and
+    :func:`mimo_ofdm_tpu_torch.kernels.ldpc_decode.ldpc_decode` decodes them
+    (the kernels on CUDA, :func:`_decode` on the CPU)."""
     with (span("decode", codewords=math.prod(llr.shape[:-1]), iters=n_iters) if enabled()
           else OFF):
-        return _decode(code, llr, n_iters, normalization, algorithm)
+        return ldpc_decode.ldpc_decode(code, llr.to(torch.float32).contiguous(), n_iters,
+                                       normalization, algorithm)
 
 
 def _decode(code: QcLdpcCode, llr: torch.Tensor, n_iters: int, normalization: float,
